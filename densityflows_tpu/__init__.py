@@ -1,13 +1,13 @@
-"""densityflows_tpu — a TPU-native normalizing-flow density-estimation engine.
+"""densityflows_tpu — a JAX normalizing-flow density-estimation engine.
 
-Brand-new JAX/XLA/Pallas/pjit framework with the capabilities of the
-reference ``gaetanfacchinetti/DensityFlows.jl`` (surveyed in
-/root/repo/SURVEY.md), redesigned TPU-first:
+JAX/XLA framework with the capabilities of the reference
+``gaetanfacchinetti/DensityFlows.jl`` (surveyed in SURVEY.md):
 
 - functional pytree layers with static masks (no macros, no mutation),
 - row-major ``(batch..., d)`` layout, batch axis sharded on a device mesh,
 - one jitted program per entry point (train step, sampling sweep, density),
-- fused Pallas coupling kernels for the hot shapes (``ops.pallas_coupling``),
+- a whole-chain fold kernel for bulk inference on the GPU
+  (``ops.pallas_chain``),
 - data-parallel training via GSPMD NamedSharding + XLA collectives.
 
 Public API parity map (reference export → here) in README.md.
@@ -40,7 +40,6 @@ from .models.layers import (
     RQSCouplingLayer,
     cast_conditioners,
     coupling_layer,
-    set_fused_kernels,
 )
 from .models.normalization import (
     NormalizationLayer,
@@ -65,7 +64,6 @@ from .ops.coupling import (
 )
 from .ops.mlp import MLP, apply_mlp, init_mlp
 from .train import train, evaluate, make_train_step, Adam, adam
-from .models.fused_train import UnsupportedFusedTrain, train_fused
 from .data_stream import StreamingLoader, train_streaming
 from .ensemble import EnsembleFlow, train_ensemble, stack_models
 from .inference import (
@@ -117,7 +115,7 @@ __all__ = [
     # models
     "RNVPCouplingLayer", "NICECouplingLayer", "RQSCouplingLayer",
     "JointRNVPCouplingLayer",
-    "coupling_layer", "set_fused_kernels", "cast_conditioners",
+    "coupling_layer", "cast_conditioners",
     "NormalizationLayer", "normalization_layer",
     "PermutationLayer", "permutation_layer",
     "MAFLayer", "maf_layer", "IAFLayer", "iaf_layer",

@@ -1,7 +1,7 @@
 """Out-of-core streaming input pipeline + streaming trainer.
 
-The fused-program path (:func:`densityflows_tpu.train.train`) uploads the
-whole dataset to HBM once — right for datasets that fit. This module is
+The whole-run program (:func:`densityflows_tpu.train.train`) uploads the
+whole dataset to device memory once — right for datasets that fit. This module is
 the path for datasets that don't: a host-side loader that assembles
 shuffled batches from a (possibly memory-mapped) array with the native
 threaded gather (``native/loader.cpp``), double-buffers them on a
@@ -208,19 +208,6 @@ def train_streaming(
     if optimizer is None:
         optimizer = _default_adam()
     step = make_train_step(optimizer)
-    # fused streaming step (r5): on a single TPU with an Adam-family
-    # optimizer inside the step-kernel envelope, the per-batch step runs
-    # the grads-only kernel + folded Adam (3.4×/1.6× the jnp step at
-    # ref/medium configs — design.md §14c). The loop below is unchanged:
-    # `model`/`opt_state` carry the FOLDED representation, and `fused`
-    # translates at entry/exit.
-    fused = _fused_streaming_setup(flow, optimizer, opt_state, mesh)
-    fused_carrier = None
-    if fused is not None:
-        # fold BEFORE any multi-process replication of model/opt_state
-        fused_carrier = fused["enter"](flow.model, opt_state)
-        if fused_carrier is None:
-            fused = None
     loader = StreamingLoader(
         x, theta, batchsize=batchsize, shuffle=shuffle, seed=seed,
         host_id=host_id, num_hosts=num_hosts,
@@ -232,9 +219,7 @@ def train_streaming(
 
         batch_sharding = data_sharding(mesh, 2)
         mask_sharding = data_sharding(mesh, 1)
-        if multiproc and fused is None:
-            # the fused path folds the HOST-LOCAL model/state and lifts
-            # the folded lists itself (enter())
+        if multiproc:
             flow.model = put_replicated(mesh, flow.model)
             if opt_state is not None:
                 opt_state = put_replicated(mesh, opt_state)
@@ -248,12 +233,7 @@ def train_streaming(
         return jax.device_put(arr, sharding)
 
     model = flow.model
-    if fused is not None:
-        model, opt_state = fused_carrier
-        step = fused["step"]
-        flow.trained_path = ("fused-step-mesh" if mesh is not None
-                             else "fused-step")
-    elif opt_state is None:
+    if opt_state is None:
         opt_state = optimizer.init(model)
     md = flow.metadata
 
@@ -274,7 +254,6 @@ def train_streaming(
 
         logger = MetricsLogger(metrics_log)
 
-    eval_nll = fused["eval"] if fused is not None else _eval_nll_jit
     for e in range(epochs):
         losses, weights = [], []
         for xb, thb, mask in loader.epoch(e):
@@ -298,12 +277,11 @@ def train_streaming(
             weights = [float(np.asarray(w)) for w in weights]
         w = np.asarray(weights)
         train_nll = float(np.dot(np.asarray(losses), w) / max(w.sum(), 1.0))
-        if fused is None:
-            flow.model = model  # folded carriers unfold once at exit
+        flow.model = model
         flow.train_loss.append(train_nll)
         extras = {}
         if xv is not None:
-            vl = float(eval_nll(model, flow.base, xv, thv))
+            vl = float(_eval_nll_jit(model, flow.base, xv, thv))
             flow.valid_loss.append(vl)
             extras["valid_nll"] = vl
         if logger is not None:
@@ -314,149 +292,5 @@ def train_streaming(
             if xv is not None:
                 msg += f", valid_loss = {extras['valid_nll']}"
             print(msg)
-    if fused is not None:
-        model, opt_state = fused["exit"](model, opt_state)
-        flow.model = model
     return opt_state
 
-
-def _fused_streaming_setup(flow, optimizer, opt_state, mesh=None):
-    """``None``, or enter/step/eval/exit callables that run the
-    streaming loop on FOLDED params with the grads-only step kernel
-    (``ops/pallas_step``) + optax Adam. On a mesh the per-batch step is
-    the shard_map DP step (local kernel → grad psum → folded Adam,
-    ``train.make_fused_step_fn``) and works multi-process (fold
-    host-local, lift to replicated global arrays). Adam-family, inside
-    the measured envelope only (design.md §14c)."""
-    import numpy as np
-    import optax
-
-    from .models.fused_train import (
-        _STEP_MAX_D,
-        _STEP_MAX_LOCAL_BATCH,
-        _STEP_MAX_WIDTH,
-        UnsupportedFusedTrain,
-        chain_train_fold,
-    )
-    from .train import Adam, _default_adam
-
-    if jax.default_backend() != "tpu":
-        return None
-    if type(optimizer) is Adam:
-        hp = dict(learning_rate=optimizer.learning_rate, b1=optimizer.b1,
-                  b2=optimizer.b2, eps=optimizer.eps)
-    elif optimizer is _default_adam():
-        hp = dict(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8)
-    else:
-        return None
-    if opt_state is not None and not (
-            hasattr(opt_state[0], "mu") and hasattr(opt_state[0], "nu")):
-        return None
-    if flow.metadata.d > _STEP_MAX_D:
-        return None
-    try:
-        (plan, tcounts, tparams, masks, mask_slots, cparams, fold_state,
-         unfold) = chain_train_fold(flow.model)
-    except UnsupportedFusedTrain:
-        return None
-    width = max([int(p.shape[-1]) for p in tparams
-                 if getattr(p, "ndim", 0) == 2] + [1])
-    if width > _STEP_MAX_WIDTH:
-        return None
-    multiproc = mesh is not None and jax.process_count() > 1
-
-    from .ops.pallas_step import folded_nll, run_fused_grads
-
-    tx = optax.adam(**hp)
-    # real platform, not default_backend (tests monkeypatch the latter
-    # to exercise routing on the CPU rig)
-    interpret = jax.devices()[0].platform != "tpu"
-
-    if mesh is not None:
-        from .train import make_fused_step_fn
-
-        ndev = int(dict(mesh.shape).get("data", 1))
-        if any(sz > 1 for name, sz in dict(mesh.shape).items()
-               if name != "data"):
-            return None
-        mesh_step = make_fused_step_fn(
-            mesh, plan, tuple(tcounts), tuple(masks), tuple(mask_slots),
-            tuple(cparams), lr=hp["learning_rate"], b1=hp["b1"],
-            b2=hp["b2"], eps=hp["eps"], interpret=interpret)
-
-        def step(tp, fstate, base_stub, xb, thb, mask):
-            del base_stub
-            if xb.shape[0] % ndev or xb.shape[0] // ndev \
-                    > _STEP_MAX_LOCAL_BATCH:
-                raise ValueError(
-                    f"streaming fused-step: global batch {xb.shape[0]} "
-                    f"must divide the data axis ({ndev}) and keep the "
-                    f"per-device batch ≤ {_STEP_MAX_LOCAL_BATCH}")
-            return mesh_step(tp, fstate, xb, thb, mask)
-    else:
-        @jax.jit
-        def step(tp, fstate, base_stub, xb, thb, mask):
-            del base_stub
-            loss, grads = run_fused_grads(
-                xb, thb, mask, tuple(tp), tuple(masks), tuple(cparams),
-                plan=plan, tcounts=tuple(tcounts),
-                mask_slots=tuple(mask_slots),
-                tile=min(512, xb.shape[0]), interpret=interpret)
-            upd, fstate = tx.update(list(grads), fstate, list(tp))
-            return tuple(p + u for p, u in zip(tp, upd)), fstate, loss
-
-    @jax.jit
-    def eval_nll(tp, base_stub, xv, thv):
-        del base_stub
-        ones = jnp.ones((xv.shape[0], 1), jnp.float32)
-        return folded_nll(list(tp), list(cparams), xv, thv, ones,
-                          plan=plan, tcounts=tuple(tcounts))
-
-    def enter(model, user_state):
-        fstate = tx.init(list(tparams))
-        tp = tuple(tparams)
-        if user_state is not None:
-            adam = user_state[0]
-            try:
-                fstate = (fstate[0]._replace(
-                    count=jnp.asarray(adam.count, jnp.int32),
-                    mu=fold_state(adam.mu),
-                    nu=fold_state(adam.nu),
-                ),) + tuple(fstate[1:])
-            except Exception:
-                # non-addressable state cannot fold eagerly — caller
-                # falls back to the jnp step path
-                return None
-        if multiproc:
-            from .parallel.mesh import put_replicated
-
-            tp = put_replicated(mesh, tp)
-            fstate = put_replicated(mesh, fstate)
-        return tp, fstate
-
-    def _to_host(arrs):
-        if multiproc:
-            return [jnp.asarray(np.asarray(a.addressable_data(0)))
-                    for a in arrs]
-        return list(arrs)
-
-    def exit_(tp, fstate):
-        new_model = unfold(_to_host(tp))
-
-        def zero_tpl():
-            return jax.tree_util.tree_map(jnp.zeros_like, new_model)
-
-        ref_state = tx.init(new_model)
-        count_out = fstate[0].count
-        if multiproc:
-            count_out = jnp.asarray(
-                np.asarray(count_out.addressable_data(0)))
-        new0 = ref_state[0]._replace(
-            count=count_out,
-            mu=unfold(_to_host(fstate[0].mu), zero_tpl()),
-            nu=unfold(_to_host(fstate[0].nu), zero_tpl()),
-        )
-        return new_model, (new0,) + tuple(ref_state[1:])
-
-    return {"enter": enter, "step": step, "eval": eval_nll,
-            "exit": exit_}

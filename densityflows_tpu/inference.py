@@ -124,10 +124,9 @@ def clear_caches() -> None:
     """
     # NOT `from . import train` — the package re-exports the train()
     # FUNCTION under that name, shadowing the module attribute
-    from .train import _PROGRAM_CACHE, _STEP_PROGRAM_CACHE
+    from .train import _PROGRAM_CACHE
 
     _PROGRAM_CACHE.clear()
-    _STEP_PROGRAM_CACHE.clear()
     _VI_CACHE.clear()
     _APT_CACHE._store.clear()
     for c in (_REJECTION_CACHE, _MCMC_CACHE, _SMC_CACHE):

@@ -1,6 +1,6 @@
 """Flow chains: ordered composition of flow elements with ldj accumulation.
 
-TPU-native counterpart of the reference ``FlowChain``
+JAX counterpart of the reference ``FlowChain``
 (/root/reference/src/Chains.jl:78-197). Semantics preserved:
 
 - ``forward`` folds first→last (latent → data), ``inverse`` folds
@@ -65,9 +65,8 @@ class FlowChain:
 
     def forward_(self, z, theta):
         """ldj-free sampling sweep (reference ``forward!`` fold,
-        Chains.jl:187-197). On TPU at large batches the whole chain runs
-        as ONE fused Pallas kernel (models/fused_chain.py) — a single
-        VMEM-resident pass instead of one kernel per layer."""
+        Chains.jl:187-197). Where the router picks it, the whole chain
+        runs as ONE fused GPU kernel (models/fused_chain.py)."""
         from .fused_chain import maybe_apply_fused
 
         out = maybe_apply_fused(self, z, theta, "fwd", False)

@@ -1,6 +1,6 @@
 """The Flow engine: model + base distribution + θ-metadata + histories.
 
-TPU-native counterpart of the reference ``Flow`` wrapper and its
+JAX counterpart of the reference ``Flow`` wrapper and its
 density/sampling API (/root/reference/src/Flows.jl). Semantic parity:
 
 - θ is min-max normalized to [0,1] **exactly once, at the Flow boundary**,
@@ -55,13 +55,13 @@ def _sample_program(model, base_stub, r, theta):
     return model.forward_(r, theta)
 
 
-# row-chunked fold (r5): at wide widths the straight fold is inter-layer
-# HBM-traffic-bound — every coupling reads/writes a (rows, width)
-# activation through HBM. Chunking the row axis bounds the live working
-# set: measured 20.1M vs 6.9M draws/s (2.9×) at d=128 h=512, 2^18 rows,
-# best at chunk 4096 (benchmarks/chunked_fold_probe.py, design.md §14e).
-_FOLD_CHUNK = 4096
-_FOLD_CHUNK_BYTES = 32 * 1024 * 1024
+# row-chunked fold: a memory bound, not a speed route. On the H100 the
+# straight fold over 2^18 rows beat 4096-row chunks by 1.4-7x at every
+# width measured (PERF.md, "Kernel decisions"), so the fold is chunked
+# only when one layer's activations would pass 1 GiB, in blocks of the
+# row count measured fast.
+_FOLD_CHUNK = 1 << 18
+_FOLD_CHUNK_BYTES = 1 << 30
 
 
 def _max_conditioner_width(model) -> int:
@@ -76,7 +76,7 @@ def _max_conditioner_width(model) -> int:
 @partial(jax.jit, donate_argnums=(1,))
 def _sample_program_chunked(model, r, theta):
     """The same fold in ``_FOLD_CHUNK``-row blocks (lax.scan +
-    dynamic_slice) so inter-layer activations stay cache-resident."""
+    dynamic_slice) so the live activations stay bounded."""
     rows, d = r.shape[0], r.shape[-1]
     c = _FOLD_CHUNK
     pad = (-rows) % c
@@ -98,8 +98,8 @@ def _sample_program_chunked(model, r, theta):
 
 def _chain_eval(model, y, theta, dirn):
     """Inverse/forward fold with ldj, routed through the whole-chain fused
-    kernel on TPU inference paths (models/fused_chain.py; grad-safe — its
-    custom-vjp backward falls back to the jnp oracle)."""
+    kernel where the router picks it (models/fused_chain.py; grad-safe —
+    its custom-vjp backward runs the jnp fold)."""
     if isinstance(model, FlowChain):
         from .fused_chain import maybe_apply_fused
 
@@ -117,9 +117,9 @@ def _log_prob_program(model, base, x, theta):
 
 @jax.jit
 def _log_prob_program_chunked(model, base, x, theta):
-    """Row-chunked inverse fold (design.md §14e): the same 4096-row
-    blocking as the sampling fold, for density evaluation at widths ×
-    row counts past the cache-resident regime."""
+    """Row-chunked inverse fold: the same blocking as the sampling fold,
+    for density evaluation at widths × row counts whose activations
+    would not fit."""
     rows = x.shape[0]
     c = _FOLD_CHUNK
     pad = (-rows) % c
@@ -212,14 +212,6 @@ class Flow:
         # per-epoch counts of batch updates skipped as non-finite
         # (populated by train(skip_nonfinite=True))
         self.skipped_updates: list[int] = []
-        # which path the most recent train() call ran ("fused" = the
-        # whole-run Pallas kernel, "jnp" = the XLA program) and, when the
-        # fused kernel declined, the envelope/surface item that blocked it
-        self.trained_path: str | None = None
-        self.fused_decline_reason: str | None = None
-        # which fused kernel the last train_fused run used
-        # ("resident" | "resident-chunked" | "stream")
-        self.fused_kernel_mode: str | None = None
         # device-resident θ bounds for boundary normalization
         self._theta_min = jnp.asarray(metadata.theta_min)
         self._theta_max = jnp.asarray(metadata.theta_max)
@@ -323,9 +315,6 @@ class Flow:
             )
             out = _sample_program(self.model, None, r, theta_n)
             return out.reshape(dims + (self.metadata.d,))
-        out = self._sample_fused(dims, theta, key, dtype)
-        if out is not None:
-            return out
         r = self.base.sample(key, dims, dtype)
         theta_n = self.prepare_theta(theta, dims, dtype)
         rows = int(np.prod(dims)) if dims else 1
@@ -339,34 +328,19 @@ class Flow:
         return _sample_program(self.model, None, r, theta_n)
 
     def _chunk_fold(self, rows: int) -> bool:
-        """Chunk the sampling fold when the per-layer activation traffic
-        is past the cache-resident regime (design.md §14e)."""
+        """Chunk the fold when one layer's activations would pass
+        ``_FOLD_CHUNK_BYTES`` — unless the fused kernel takes the fold,
+        which keeps activations on chip by construction."""
         w = max(_max_conditioner_width(self.model), self.metadata.d)
         return (rows >= 2 * _FOLD_CHUNK
-                and rows * w * 4 > _FOLD_CHUNK_BYTES)
+                and rows * w * 4 > _FOLD_CHUNK_BYTES
+                and not self._kernel_fold(rows))
 
-    def _sample_fused(self, dims, theta, key, dtype):
-        """Single-kernel sampling (in-kernel base draw + whole-chain fold,
-        models/fused_chain.py) for the StandardNormal base on TPU; a
-        scalar/tuple θ is broadcast inside the kernel without ever
-        materializing (rows, n) in HBM."""
-        if not isinstance(self.base, StandardNormal) or dtype != jnp.float32:
-            return None
-        if not isinstance(self.model, FlowChain):
-            return None
-        from .fused_chain import maybe_sample_fused
+    def _kernel_fold(self, rows: int) -> bool:
+        from .fused_chain import routes_to_kernel
 
-        rows = int(np.prod(dims)) if dims else 1
-        if theta is None or isinstance(theta, (int, float, tuple, list)):
-            theta_n = self.prepare_theta(theta, (1,), dtype)
-        else:
-            theta_n = self.prepare_theta(theta, dims, dtype)
-            theta_n = theta_n.reshape(rows, theta_n.shape[-1])
-        out = maybe_sample_fused(self.model, key, rows, self.metadata.d,
-                                 theta_n)
-        if out is None:
-            return None
-        return out.reshape(dims + (self.metadata.d,))
+        return (isinstance(self.model, FlowChain)
+                and routes_to_kernel(self.model, rows, self.metadata.d))
 
     def sample_sweep(self, thetas, n_per_theta: int, *, key=None,
                      dtype=jnp.float32, mesh=None):
@@ -392,15 +366,6 @@ class Flow:
             theta_full, self._theta_min.astype(dtype),
             self._theta_max.astype(dtype),
         ) if self.metadata.n else theta_full
-        if (mesh is None and dtype == jnp.float32
-                and isinstance(self.base, StandardNormal)
-                and isinstance(self.model, FlowChain)):
-            from .fused_chain import maybe_sample_fused
-
-            out = maybe_sample_fused(self.model, key, total,
-                                     self.metadata.d, theta_n)
-            if out is not None:
-                return out.reshape(g, n_per_theta, self.metadata.d)
         if mesh is not None:
             from ..parallel.mesh import data_sharding
 

@@ -1,33 +1,20 @@
-"""Whole-chain fusion: compile a FlowChain into one Pallas kernel pass.
+"""Whole-chain fusion: compile a FlowChain into one GPU kernel pass.
 
-Builds the static op *plan* + flat parameter list that
+Builds the static op *plan* + flat, padded parameter list that
 ``ops/pallas_chain.py`` executes, and wraps the kernel in a
-``jax.custom_vjp`` whose backward falls back to the pure-jnp per-layer
-path — so the fused chain is safe to call anywhere (including under
-``jax.grad``) while targeting the inference hot paths: the sampling sweep
-(the reference's ``forward!`` fold, /root/reference/src/Chains.jl:187-197)
-and density evaluation (/root/reference/src/Flows.jl:272-281).
+``jax.custom_vjp`` whose backward runs the pure-jnp per-layer fold — so
+the fused chain is safe under ``jax.grad`` while it targets the inference
+hot paths: the sampling sweep (the reference's ``forward!`` fold,
+DensityFlows.jl src/Chains.jl:187-197) and density evaluation
+(src/Flows.jl:272-281).
 
-Supported elements: RNVP/NICE couplings, Normalization, ActNorm,
-Permutation, InvertibleLinear (LU), Logit. Chains containing anything else
-(splines, MAF/IAF, embeddings) return ``None`` from
-:func:`maybe_apply_fused` and keep the per-layer path.
+Supported elements: RNVP/NICE/joint couplings, Normalization, ActNorm,
+Permutation, InvertibleLinear (LU), Logit. Chains containing anything
+else (splines, MAF/IAF, embeddings) keep the per-layer path.
 
-**Measured routing (v5e, two-point scan timing — see
-benchmarks/fused_chain_probe.py and the crossover table on
-``models.layers.use_fused_chain``):** XLA vectorizes small-d chains on
-the VPU at ~roofline (d=5, h=16: 373M rows/s log_prob vs 91M here), but
-once the conditioner matmuls are MXU-worthy the one-kernel path wins
-big — 1.43x at (d=16, h=64), 2.6–3.1x at h=128, 2.8x at the wide
-config (d=32, h=256: 33M vs 12M rows/s; in-kernel sampler 37M vs 12M).
-"auto" therefore routes here exactly when TPU ∧ rows ≥ 4096 ∧ d ≥ 16 ∧
-hidden ≥ 64; ``set_fused_kernels(True/False)`` forces either way.
-
-Training deliberately does NOT route here: ``nll_loss`` differentiates
-``model.inverse``, whose per-layer fused kernels have real fused backward
-kernels (ops/pallas_coupling.py); this module's custom-vjp backward
-recomputes through the jnp oracle instead, which is correct but would
-waste the fused forward under grad.
+Routing (:func:`use_fused_chain`) is a pure function of what the caller
+can observe — platform, rows, width, hidden width, conditioner form —
+and never of whether a call fails: a kernel error propagates.
 """
 
 from __future__ import annotations
@@ -39,220 +26,187 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import coupling as C
-from ..ops.pallas_chain import (
-    chain_vmem_bytes,
-    op_param_count,
-    pick_tile_rows,
-    run_chain,
-    run_chain_sample,
-)
+from ..ops.pallas_chain import op_param_count, pow2_width, run_chain
 from .glow import ActNormLayer, InvertibleLinearLayer
 from .layers import (
     JointRNVPCouplingLayer,
     NICECouplingLayer,
     RNVPCouplingLayer,
-    use_fused_chain,
 )
 from .normalization import LogitLayer, NormalizationLayer, PermutationLayer
 
-__all__ = ["maybe_apply_fused", "maybe_sample_fused", "chain_is_fusable"]
+__all__ = ["maybe_apply_fused", "apply_fused", "chain_is_fusable",
+           "use_fused_chain", "routes_to_kernel"]
+
+_COUPLINGS = (RNVPCouplingLayer, NICECouplingLayer, JointRNVPCouplingLayer)
+
+# Router box: the shapes where the kernel beat XLA's fold on the H100
+# (PERF.md, "Kernel decisions"; 2^18 rows, split conditioners): it won
+# 1.3-2x at hidden <= 64 for d in 8..32, tied at hidden 128 and lost
+# ~2x at hidden >= 256, split or joint. Joint chains at narrow widths
+# were not measured, so they keep XLA's fold.
+_CHAIN_MIN_ROWS = 1 << 18
+_CHAIN_MIN_D, _CHAIN_MAX_D = 8, 32
+_CHAIN_MAX_HIDDEN = 64
 
 
-class _Unsupported(Exception):
-    pass
+def use_fused_chain(platform: str, rows: int, d: int, hidden: int,
+                    joint: bool) -> bool:
+    """Whether the fold runs as the fused kernel: only compiled for the
+    GPU, and only at the shapes where it measured faster than XLA."""
+    return (platform == "gpu"
+            and not joint
+            and rows >= _CHAIN_MIN_ROWS
+            and _CHAIN_MIN_D <= d <= _CHAIN_MAX_D
+            and hidden <= _CHAIN_MAX_HIDDEN)
 
 
-def _inv_perm(perm):
-    inv = np.empty(len(perm), np.int64)
-    inv[list(perm)] = np.arange(len(perm))
-    return tuple(int(i) for i in inv)
+def _pad(w, rows, cols, fill=0.0):
+    w = jnp.asarray(w, jnp.float32)
+    if w.ndim == 1:
+        w = w.reshape(1, -1)
+    return jnp.pad(w, ((0, rows - w.shape[0]), (0, cols - w.shape[1])),
+                   constant_values=fill)
 
 
-def _perm_matrix(perm, d):
-    """(d, d) with m[perm[j], j] = 1 so that (x @ m)[:, j] = x[:, perm[j]]."""
-    m = np.zeros((d, d), np.float32)
-    for j, i in enumerate(perm):
-        m[int(i), j] = 1.0
-    return jnp.asarray(m)
+def _scatter_cols(w, cols, idx):
+    """(r, |idx|) → (r, cols) with the columns placed at ``idx``."""
+    w = jnp.asarray(w, jnp.float32)
+    if w.ndim == 1:
+        w = w.reshape(1, -1)
+    return jnp.zeros((w.shape[0], cols), jnp.float32).at[:, idx].set(w)
 
 
-def _coupling_entry(layer, dirn):
-    """Fold the static split/recombine into the conditioner weights so the
-    kernel does zero selection work (and x never enters a matmul):
+class _Shapes:
+    """Padded kernel widths: features D, conditions N, hidden H."""
 
-    - first dense layer (K, H) with K = n + |id| splits into a θ part
-      (n, H) and an x part zero-padded to (d, H) — ``u1 = θ@W1θ + x@W1x``
-      reproduces ``h = [θ | x[:, id]]`` (the axis_nn ordering,
-      src/Axes.jl:90-98) since the zero rows kill non-identity dims;
-    - final dense layer (H, A) scatters into (H, d) columns at af
-      positions (bias likewise), so the net emits d-wide s/t that are
-      exactly 0 on identity dims — the elementwise transform
-      ``y = x·exp(s_full) + t_full`` is then the whole coupling.
-    """
-    if isinstance(layer, JointRNVPCouplingLayer):
-        return _joint_coupling_entry(layer, dirn)
-    if isinstance(layer, RNVPCouplingLayer):
-        kind, nets = "nvp", (layer.s_net, layer.t_net)
-    else:
-        kind, nets = "nice", (None, layer.t_net)
-    s_net, t_net = nets
+    def __init__(self, d, n, hidden):
+        self.d, self.n = d, n
+        self.D, self.N, self.H = pow2_width(d), pow2_width(n), hidden
+
+
+def _fold_first(w0, ax, sh, params):
+    """First dense layer (K, h), K = n + |id|, split into a θ part (N, H)
+    and an x part scattered to the identity rows of (D, H) — so
+    ``θ@W1θ + x@W1x`` reproduces ``h = [θ | x[:, id]]`` (axis_nn
+    ordering, src/Axes.jl:90-98) with no gather in the kernel."""
+    n = ax.n
+    w0 = jnp.asarray(w0, jnp.float32)
+    if n:
+        params.append(_pad(w0[:n], sh.N, sh.H))
+    if len(ax.axis_id):
+        w1x = jnp.zeros((sh.D, sh.H), jnp.float32)
+        params.append(w1x.at[np.asarray(ax.axis_id), :w0.shape[1]].set(
+            w0[n:]))
+
+
+def _coupling_entry(layer, dirn, sh):
     ax = layer.axes
-    if ax.transform_dim == 0 or ax.nn_input_dim == 0:
-        raise _Unsupported  # degenerate masks keep the jnp path
-    d, n = ax.d, ax.n
-    id_idx = np.asarray(ax.axis_id, np.int32)
-    af_idx = np.asarray(ax.axis_af, np.int32)
-    has_th, has_id = n > 0, len(id_idx) > 0
+    af = np.asarray(ax.axis_af)
     params = []
+
+    def biased(net):
+        return bool(net.biases[0].shape[0])
+
+    if isinstance(layer, JointRNVPCouplingLayer):
+        net, a = layer.st_net, ax.transform_dim
+        ws = net.weights
+        _fold_first(ws[0], ax, sh, params)
+        params.extend(_pad(w, sh.H, sh.H) for w in ws[1:-1])
+        for head in (ws[-1][:, :a], ws[-1][:, a:]):
+            params.append(_pad(_scatter_cols(head, sh.D, af), sh.H, sh.D))
+        if biased(net):
+            params.extend(_pad(b, 1, sh.H) for b in net.biases[:-1])
+            bf = net.biases[-1]
+            params.extend(_scatter_cols(h, sh.D, af) for h in (bf[:a], bf[a:]))
+        op = ("coupling", "joint", dirn, len(ws), 0, net.activation,
+              net.activation, biased(net), False, ax.n > 0,
+              len(ax.axis_id) > 0, float(layer.max_log_scale))
+        return op, params
 
     def fold_net(net):
-        has_bias = bool(net.biases[0].shape[0]) if net.biases else False
-        ws = [jnp.asarray(w, jnp.float32) for w in net.weights]
-        L = len(ws)
-        w0 = ws[0]
-        if has_th:
-            params.append(w0[:n])
-        if has_id:
-            w1x = jnp.zeros((d, w0.shape[1]), jnp.float32)
-            params.append(w1x.at[id_idx].set(w0[n:]))
-        params.extend(ws[1:-1])
-        wf = jnp.zeros((ws[-1].shape[0], d), jnp.float32)
-        params.append(wf.at[:, af_idx].set(ws[-1]))
-        if has_bias:
-            for b in net.biases[:-1]:
-                params.append(jnp.asarray(b, jnp.float32).reshape(1, -1))
-            bf = jnp.zeros((1, d), jnp.float32)
-            params.append(bf.at[0, af_idx].set(
-                jnp.asarray(net.biases[-1], jnp.float32)))
-        return L, net.activation, has_bias
+        ws = net.weights
+        _fold_first(ws[0], ax, sh, params)
+        params.extend(_pad(w, sh.H, sh.H) for w in ws[1:-1])
+        params.append(_pad(_scatter_cols(ws[-1], sh.D, af), sh.H, sh.D))
+        if biased(net):
+            params.extend(_pad(b, 1, sh.H) for b in net.biases[:-1])
+            params.append(_scatter_cols(net.biases[-1], sh.D, af))
+        return len(ws), net.activation, biased(net)
 
-    if kind == "nvp":
-        n_s, act_s, bias_s = fold_net(s_net)
+    if isinstance(layer, RNVPCouplingLayer):
+        kind = "nvp"
+        n_s, act_s, bias_s = fold_net(layer.s_net)
+        clamp = float(layer.max_log_scale)
     else:
-        n_s, act_s, bias_s = 0, "identity", False
-    n_t, act_t, bias_t = fold_net(t_net)
-    clamp = float(getattr(layer, "max_log_scale", 0.0))
+        kind, n_s, act_s, bias_s, clamp = "nice", 0, "identity", False, 0.0
+    n_t, act_t, bias_t = fold_net(layer.t_net)
     op = ("coupling", kind, dirn, n_s, n_t, act_s, act_t, bias_s, bias_t,
-          has_th, has_id, clamp)
+          ax.n > 0, len(ax.axis_id) > 0, clamp)
     return op, params
 
 
-def _joint_coupling_entry(layer, dirn):
-    """Joint (two-headed) coupling: the shared stack folds like a plain
-    net, but the final (H, 2|af|) weight splits into TWO (H, d) folded
-    heads — s columns scattered to af positions, t columns likewise —
-    executed by the kernel's ``("coupling", "joint", …)`` op as ONE
-    shared-stack pass + two head matmuls (ops/pallas_chain.py)."""
-    net = layer.st_net
-    ax = layer.axes
-    if ax.transform_dim == 0 or ax.nn_input_dim == 0:
-        raise _Unsupported
-    d, n = ax.d, ax.n
-    a = ax.transform_dim
-    id_idx = np.asarray(ax.axis_id, np.int32)
-    af_idx = np.asarray(ax.axis_af, np.int32)
-    has_th, has_id = n > 0, len(id_idx) > 0
-    has_bias = bool(net.biases[0].shape[0]) if net.biases else False
-    ws = [jnp.asarray(w, jnp.float32) for w in net.weights]
-    n_layers = len(ws)
-    if n_layers < 2:
-        raise _Unsupported  # a single dense layer has no shared stack
-
-    params = []
-    w0 = ws[0]
-    if has_th:
-        params.append(w0[:n])
-    if has_id:
-        w1x = jnp.zeros((d, w0.shape[1]), jnp.float32)
-        params.append(w1x.at[id_idx].set(w0[n:]))
-    params.extend(ws[1:-1])
-    wf = ws[-1]  # (H, 2a): columns [:a] are the s head, [a:] the t head
-    for head in (wf[:, :a], wf[:, a:]):
-        scat = jnp.zeros((wf.shape[0], d), jnp.float32)
-        params.append(scat.at[:, af_idx].set(head))
-    if has_bias:
-        for b in net.biases[:-1]:
-            params.append(jnp.asarray(b, jnp.float32).reshape(1, -1))
-        bf = jnp.asarray(net.biases[-1], jnp.float32)
-        for head in (bf[:a], bf[a:]):
-            scat = jnp.zeros((1, d), jnp.float32)
-            params.append(scat.at[0, af_idx].set(head))
-    op = ("coupling", "joint", dirn, n_layers, 0, net.activation,
-          net.activation, has_bias, False, has_th, has_id,
-          float(layer.max_log_scale))
-    return op, params
+def _affine(a, b, c, sh):
+    return ("affine",), [_pad(a, 1, sh.D, 1.0), _pad(b, 1, sh.D)], c
 
 
-def _normalization_entry(layer, dirn):
+def _normalization_entry(layer, dirn, sh):
     lo = jax.lax.stop_gradient(layer.x_min).astype(jnp.float32)
     hi = jax.lax.stop_gradient(layer.x_max).astype(jnp.float32)
     diff = hi - lo
     delta = layer.beta - layer.alpha
-    c = jnp.sum(jnp.log(diff / delta)).reshape(1, 1)
+    c = jnp.sum(jnp.log(diff / delta))
     if dirn == "fwd":  # [α,β] → [lo,hi] (reference Normalization.jl:79-92)
-        a = diff / delta
-        b = (layer.beta * lo - layer.alpha * hi) / delta
-        return ("affine",), [a.reshape(1, -1), b.reshape(1, -1), c]
-    a = delta / diff  # [lo,hi] → [α,β] (Normalization.jl:64-77)
-    b = (layer.alpha * hi - layer.beta * lo) / diff
-    return ("affine",), [a.reshape(1, -1), b.reshape(1, -1), -c]
+        return _affine(diff / delta,
+                       (layer.beta * lo - layer.alpha * hi) / delta, c, sh)
+    # [lo,hi] → [α,β] (Normalization.jl:64-77)
+    return _affine(delta / diff,
+                   (layer.alpha * hi - layer.beta * lo) / diff, -c, sh)
 
 
-def _actnorm_entry(layer, dirn):
+def _actnorm_entry(layer, dirn, sh):
     ls = layer.log_scale.astype(jnp.float32)
     bias = layer.bias.astype(jnp.float32)
-    c = jnp.sum(ls).reshape(1, 1)
+    c = jnp.sum(ls)
     if dirn == "fwd":  # x = z·e⁻ˢ + b
-        a = jnp.exp(-ls)
-        return ("affine",), [a.reshape(1, -1), bias.reshape(1, -1), -c]
+        return _affine(jnp.exp(-ls), bias, -c, sh)
     a = jnp.exp(ls)  # z = (x − b)·eˢ
-    return ("affine",), [a.reshape(1, -1), (-bias * a).reshape(1, -1), c]
+    return _affine(a, -bias * a, c, sh)
 
 
-def _invlinear_entry(layer, dirn):
+def _invlinear_entry(layer, dirn, sh):
     from jax.scipy.linalg import solve_triangular
 
-    c = jnp.sum(layer.log_s.astype(jnp.float32)).reshape(1, 1)
+    c = jnp.sum(layer.log_s.astype(jnp.float32))
     if dirn == "inv":  # z = x @ Wᵀ
-        return ("linear",), [layer._w().T.astype(jnp.float32), c]
+        return ("linear",), [_pad(layer._w().T, sh.D, sh.D)], c
     # forward: x = z @ W⁻ᵀ; W⁻¹ = U⁻¹ L⁻¹ Π with Π y = y[inv_perm]
-    l, u = layer._lu()
-    d = layer.d
-    e = jnp.eye(d, dtype=jnp.float32)[list(layer._inv_perm()), :]
+    lower, upper = layer._lu()
+    e = jnp.eye(layer.d, dtype=jnp.float32)[list(layer._inv_perm()), :]
     w_inv = solve_triangular(
-        u.astype(jnp.float32),
-        solve_triangular(l.astype(jnp.float32), e, lower=True,
+        upper.astype(jnp.float32),
+        solve_triangular(lower.astype(jnp.float32), e, lower=True,
                          unit_diagonal=True),
         lower=False,
     )
-    return ("linear",), [w_inv.T, -c]
+    return ("linear",), [_pad(w_inv.T, sh.D, sh.D)], -c
 
 
-def _logit_entry(layer, dirn):
+def _permutation_entry(layer, dirn, sh):
+    perm = np.asarray(layer.perm)
+    if dirn == "inv":
+        perm = np.argsort(perm)
+    # m[perm[j], j] = 1 so that (x @ m)[:, j] = x[:, perm[j]]
+    m = np.zeros((sh.D, sh.D), np.float32)
+    m[perm, np.arange(len(perm))] = 1.0
+    return ("linear",), [jnp.asarray(m)], jnp.float32(0.0)
+
+
+def _logit_entry(layer, dirn, sh):
     lo = layer.lo.astype(jnp.float32).reshape(1, -1)
     hi = layer.hi.astype(jnp.float32).reshape(1, -1)
-    wlog = jnp.log(hi - lo)
-    return ("logit", dirn, float(layer.eps)), [lo, hi, wlog]
-
-
-def _entry(layer, dirn):
-    if isinstance(layer, (RNVPCouplingLayer, NICECouplingLayer,
-                          JointRNVPCouplingLayer)):
-        return _coupling_entry(layer, dirn)
-    if isinstance(layer, NormalizationLayer):
-        return _normalization_entry(layer, dirn)
-    if isinstance(layer, ActNormLayer):
-        return _actnorm_entry(layer, dirn)
-    if isinstance(layer, InvertibleLinearLayer):
-        return _invlinear_entry(layer, dirn)
-    if isinstance(layer, PermutationLayer):
-        d = len(layer.perm)
-        zero = jnp.zeros((1, 1), jnp.float32)
-        perm = layer.perm if dirn == "fwd" else _inv_perm(layer.perm)
-        return ("linear",), [_perm_matrix(perm, d), zero]
-    if isinstance(layer, LogitLayer):
-        return _logit_entry(layer, dirn)
-    raise _Unsupported
+    return (("logit", dirn, float(layer.eps)),
+            [lo, hi, jnp.log(hi - lo)], jnp.float32(0.0))
 
 
 def _iter_layers(chain, dirn):
@@ -268,27 +222,42 @@ def _iter_layers(chain, dirn):
             yield layer
 
 
-def _plan_params(chain, dirn):
-    plan, params = [], []
+_ENTRIES = (
+    (NormalizationLayer, _normalization_entry),
+    (ActNormLayer, _actnorm_entry),
+    (InvertibleLinearLayer, _invlinear_entry),
+    (PermutationLayer, _permutation_entry),
+    (LogitLayer, _logit_entry),
+)
+
+
+def _plan_params(chain, dirn, sh):
+    """Static plan, flat padded params, and the summed constant ldj.
+    Consecutive couplings with one signature (op and parameter shapes)
+    become one ``"couplings"`` run with stacked parameters."""
+    entries, const = [], jnp.float32(0.0)
     for layer in _iter_layers(chain, dirn):
-        op, p = _entry(layer, dirn)
+        if isinstance(layer, _COUPLINGS):
+            op, p = _coupling_entry(layer, dirn, sh)
+            sig = (op, tuple(w.shape for w in p))
+            if entries and entries[-1][0] == sig:
+                entries[-1][1].append(p)
+            else:
+                entries.append((sig, [p]))
+        else:
+            entry = next(f for t, f in _ENTRIES if isinstance(layer, t))
+            op, p, c = entry(layer, dirn, sh)
+            const = const + c
+            entries.append(((op, None), p))
+    plan, params = [], []
+    for (op, shapes), p in entries:
+        if shapes is not None:  # a run of couplings
+            op = ("couplings", len(p), op)
+            p = [jnp.stack(ws) for ws in zip(*p)]
         assert len(p) == op_param_count(op)
         plan.append(op)
         params.extend(p)
-    if not plan:
-        raise _Unsupported
-    return tuple(plan), params
-
-
-def _max_hidden(chain) -> int:
-    """Widest conditioner hidden layer — the quantity the measured
-    auto-gate thresholds on (layers.use_fused_chain)."""
-    h = 0
-    for layer in _iter_layers(chain, "fwd"):
-        for net in _conditioner_nets(layer):
-            for w in net.weights[:-1]:
-                h = max(h, int(np.shape(w)[-1]))
-    return h
+    return tuple(plan), params, const
 
 
 def _conditioner_nets(layer):
@@ -301,55 +270,58 @@ def _conditioner_nets(layer):
     return ()
 
 
+def _max_hidden(chain) -> int:
+    """Widest conditioner hidden layer — what the router thresholds on."""
+    return max((int(np.shape(w)[-1]) for layer in _iter_layers(chain, "fwd")
+                for net in _conditioner_nets(layer)
+                for w in net.weights[:-1]), default=0)
+
+
 def _has_joint(chain) -> bool:
-    """Chains containing a joint conditioner route under the joint
-    crossover thresholds (stricter — see layers.use_fused_chain)."""
-    return any(isinstance(l, JointRNVPCouplingLayer)
-               for l in _iter_layers(chain, "fwd"))
+    return any(isinstance(layer, JointRNVPCouplingLayer)
+               for layer in _iter_layers(chain, "fwd"))
 
 
-def chain_is_fusable(chain, d: int, n: int) -> bool:
-    """Static feasibility check (types + VMEM budget), no tracing."""
-    try:
-        from .blocks import CouplingBlock
-
-        shapes = []
-        for layer in _iter_layers(chain, "fwd"):
-            if isinstance(layer, (RNVPCouplingLayer, NICECouplingLayer,
-                                  JointRNVPCouplingLayer)):
-                if layer.axes.transform_dim == 0 or layer.axes.nn_input_dim == 0:
-                    return False
-                if (isinstance(layer, JointRNVPCouplingLayer)
-                        and len(layer.st_net.weights) < 2):
-                    return False
-                for net in _conditioner_nets(layer):
-                    shapes.extend(net.weights)
-            elif isinstance(layer, InvertibleLinearLayer):
-                shapes.append(layer.lower)
-            elif isinstance(layer, (NormalizationLayer, ActNormLayer,
-                                    PermutationLayer, LogitLayer)):
-                pass
-            else:
-                return False
-        param_bytes = sum(int(np.prod(np.shape(w))) * 4 for w in shapes)
-        widest = max(
-            [int(np.shape(w)[-1]) for w in shapes] + [d + n]
-        )
-        # mirrors chain_vmem_bytes at the smallest tile
-        return param_bytes + 2 * 128 * (d + n + widest * 3) * 4 < 9_000_000
-    except Exception:
+def chain_is_fusable(chain, d: int) -> bool:
+    """Static feasibility: every element has a kernel op and every
+    conditioner has a hidden layer."""
+    layers = list(_iter_layers(chain, "fwd"))
+    if not layers:
         return False
+    for layer in layers:
+        if isinstance(layer, _COUPLINGS):
+            ax = layer.axes
+            if ax.transform_dim == 0 or ax.nn_input_dim == 0:
+                return False
+            if any(len(net.weights) < 2 for net in _conditioner_nets(layer)):
+                return False
+        elif isinstance(layer, LogitLayer):
+            # padded columns would add logit ldj terms
+            if pow2_width(d) != d:
+                return False
+        elif not any(isinstance(layer, t) for t, _ in _ENTRIES):
+            return False
+    return True
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _chain_fused(chain, x2, th2, dirn, with_ldj):
-    plan, params = _plan_params(chain, dirn)
-    return run_chain(plan, params, x2, th2, with_ldj=with_ldj)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
+def _chain_fused(chain, x2, th2, dirn, with_ldj, interpret):
+    rows, d = x2.shape
+    n = th2.shape[-1]
+    sh = _Shapes(d, n, pow2_width(_max_hidden(chain)))
+    plan, params, const = _plan_params(chain, dirn, sh)
+    x = jnp.pad(x2, ((0, 0), (0, sh.D - d))) if sh.D != d else x2
+    th = jnp.pad(th2, ((0, 0), (0, sh.N - n))) if n else None
+    out = run_chain(plan, params, x, th, with_ldj=with_ldj, hidden=sh.H,
+                    interpret=interpret)
+    if with_ldj:
+        y, ldj = out
+        return y[:, :d], ldj + const
+    return out[:, :d]
 
 
 def _layer_jnp(layer, y, theta, dirn):
-    """Per-layer pure-jnp apply (the correctness oracle) — couplings
-    bypass their own fused-kernel dispatch."""
+    """Per-layer pure-jnp apply (the correctness oracle)."""
     if isinstance(layer, RNVPCouplingLayer):
         y_id, y_af, s, t = layer._conditioner(y, theta)
         out, ldj = (C.rnvp_forward(s, t, y_af) if dirn == "fwd"
@@ -371,11 +343,13 @@ def _jnp_chain(chain, x2, th2, dirn, with_ldj):
     return (y, ldj) if with_ldj else y
 
 
-def _chain_fused_fwd(chain, x2, th2, dirn, with_ldj):
-    return _chain_fused(chain, x2, th2, dirn, with_ldj), (chain, x2, th2)
+def _chain_fused_fwd(chain, x2, th2, dirn, with_ldj, interpret):
+    out = _chain_fused(chain, x2, th2, dirn, with_ldj, interpret)
+    return out, (chain, x2, th2)
 
 
-def _chain_fused_bwd(dirn, with_ldj, res, g):
+def _chain_fused_bwd(dirn, with_ldj, interpret, res, g):
+    del interpret
     chain, x2, th2 = res
     _, vjp = jax.vjp(
         lambda c, xx, tt: _jnp_chain(c, xx, tt, dirn, with_ldj),
@@ -387,59 +361,37 @@ def _chain_fused_bwd(dirn, with_ldj, res, g):
 _chain_fused.defvjp(_chain_fused_fwd, _chain_fused_bwd)
 
 
-@functools.partial(jax.jit, static_argnames=("rows", "d"))
-def _sample_fused_prog(chain, seed, theta_n, rows, d):
-    plan, params = _plan_params(chain, "fwd")
-    return run_chain_sample(plan, params, seed, rows, d, theta_n)
-
-
-def maybe_sample_fused(chain, key, rows, d, theta_n):
-    """One output-only kernel: in-kernel N(0,I) draw (Box–Muller on the
-    per-core PRNG) + the full forward_ sweep. ``theta_n`` may be (1, n)
-    — one θ broadcast to every draw without materializing (rows, n) in
-    HBM. Returns (rows, d) or None when the chain isn't fusable.
-
-    Draws are deterministic in ``key`` but are a different stream from
-    ``jax.random.normal`` (bit-reproducibility across framework versions
-    is not part of the sampling contract; determinism per key is).
-    """
-    n = theta_n.shape[-1] if theta_n is not None else 0
-    if jax.default_backend() != "tpu":
-        # the CPU interpreter stubs prng_random_bits to zeros — the
-        # in-kernel draw is a real-TPU-only fast path
-        return None
-    if not use_fused_chain(rows, d, _max_hidden(chain), _has_joint(chain)):
-        return None
-    if not chain_is_fusable(chain, d, n):
-        return None
-    seed = jax.random.key_data(key).reshape(-1)[:2].astype(jnp.int32)
-    try:
-        return _sample_fused_prog(chain, seed, theta_n, rows, d)
-    except Exception:
-        return None
-
-
-def maybe_apply_fused(chain, y, theta, dirn, with_ldj):
-    """Run the whole chain as one fused kernel if supported & worthwhile;
-    returns None to keep the per-layer path. ``dirn``: "fwd" | "inv"."""
-    if y.ndim < 2:
-        return None
+def apply_fused(chain, y, theta, dirn, with_ldj, *, interpret=False):
+    """Fold ``y`` (batch..., d) through the whole chain as one kernel;
+    ``dirn``: "fwd" | "inv". The chain must be :func:`chain_is_fusable`.
+    ``interpret=True`` runs the Pallas interpreter (CPU tests)."""
     batch_shape = y.shape[:-1]
     rows = int(np.prod(batch_shape))
     d = y.shape[-1]
     n = theta.shape[-1] if theta is not None else 0
-    if not use_fused_chain(rows, d, _max_hidden(chain), _has_joint(chain)):
-        return None
-    if not chain_is_fusable(chain, d, n):
-        return None
     x2 = y.reshape(rows, d)
     th2 = (theta.reshape(rows, n) if theta is not None
            else jnp.zeros((rows, 0), y.dtype))
-    try:
-        out = _chain_fused(chain, x2, th2, dirn, with_ldj)
-    except Exception:
-        return None  # e.g. unsupported transform under vmap — keep jnp path
+    out = _chain_fused(chain, x2, th2, dirn, with_ldj, interpret)
     if with_ldj:
         yy, ldj = out
         return yy.reshape(y.shape), ldj.reshape(batch_shape)
     return out.reshape(y.shape)
+
+
+def routes_to_kernel(chain, rows: int, d: int) -> bool:
+    """Whether a fold of ``rows`` rows through ``chain`` runs as the
+    kernel on the current backend."""
+    return (use_fused_chain(jax.default_backend(), rows, d,
+                            _max_hidden(chain), _has_joint(chain))
+            and chain_is_fusable(chain, d))
+
+
+def maybe_apply_fused(chain, y, theta, dirn, with_ldj):
+    """The fused fold where the router picks it, else ``None`` (the
+    caller keeps the per-layer path)."""
+    if y.ndim < 2:
+        return None
+    if not routes_to_kernel(chain, int(np.prod(y.shape[:-1])), y.shape[-1]):
+        return None
+    return apply_fused(chain, y, theta, dirn, with_ldj)

@@ -1,6 +1,6 @@
 """Coupling layers: RealNVP and NICE, plus the constructor family.
 
-TPU-native counterpart of the reference layer structs and the
+JAX counterpart of the reference layer structs and the
 ``CouplingLayer`` convenience-constructor family
 (/root/reference/src/affine/RNVP.jl:41-48, /root/reference/src/affine/NICE.jl:31-36,
 /root/reference/src/Layers.jl:110-158).
@@ -30,7 +30,6 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..axes import CouplingAxes, coupling_axes
 from ..ops.mlp import MLP, init_mlp, apply_mlp, count_params
@@ -39,8 +38,7 @@ from ..ops import coupling as C
 __all__ = [
     "RNVPCouplingLayer", "NICECouplingLayer", "RQSCouplingLayer",
     "JointRNVPCouplingLayer",
-    "coupling_layer", "set_fused_kernels", "use_fused",
-    "cast_conditioners",
+    "coupling_layer", "cast_conditioners",
 ]
 
 
@@ -51,8 +49,8 @@ def cast_conditioners(model, dtype=jnp.bfloat16):
     original precision.
 
     This is the mixed-precision compute cast: :func:`apply_mlp` runs its
-    matmuls in the *weights'* dtype with f32 MXU accumulation
-    (ops/mlp.py), so bf16 conditioners get native-bf16 MXU passes while
+    matmuls in the *weights'* dtype with f32 accumulation
+    (ops/mlp.py), so bf16 conditioners get bf16 tensor-core passes while
     s/t/ldj and the loss stay f32 (SURVEY.md §7 "keep s/ldj accumulation
     in f32"). Used inside the loss by ``train(mixed_precision=True)`` so
     master params, grads, and optimizer state remain f32.
@@ -70,96 +68,6 @@ def cast_conditioners(model, dtype=jnp.bfloat16):
     return jax.tree_util.tree_map(
         lambda n: cast_net(n) if is_net(n) else n, model, is_leaf=is_net
     )
-
-# Fused-Pallas policy. Measured on v5e with two-point scan timing
-# (dispatch-cancelled; benchmarks/wide_config.py,
-# benchmarks/fused_chain_probe.py):
-# - PER-LAYER fused kernels lose everywhere (wide train step: jnp
-#   1.00 ms vs 1.47 ms; inference similar) — each launch re-round-trips
-#   the batch and the matmuls are pinned to multi-pass f32 while XLA
-#   uses single-pass bf16-input MXU ops. "auto" never routes to them.
-# - WHOLE-CHAIN fusion (fused_chain.py) loses at small d (XLA hits VPU
-#   roofline) but wins 1.4-3.1x once the conditioner matmuls are
-#   MXU-worthy — "auto" routes by the measured crossover (thresholds
-#   below). True forces all kernels on (tests: interpret mode on CPU).
-_FUSED_MODE: str | bool = "auto"
-
-
-def set_fused_kernels(mode: str | bool) -> None:
-    """Set the fused-kernel policy: "auto" (default), True, or False.
-
-    The policy is read at TRACE time: programs already compiled keep the
-    path they were traced with (call ``jax.clear_caches()`` to force
-    retracing after a mode change — the test suite does this implicitly
-    by jitting fresh closures).
-    """
-    global _FUSED_MODE
-    if mode not in ("auto", True, False):
-        raise ValueError("mode must be 'auto', True, or False")
-    _FUSED_MODE = mode
-
-
-# Whole-chain auto thresholds, placed by the measured crossover
-# (benchmarks/chain_crossover.py + benchmarks/fused_chain_probe.py;
-# table also in docs/design.md): chain-fused log_prob vs XLA on v5e is
-# 0.34x at (d=5, h=64), ~0.7x at (d=8, h=32), 1.43x at (d=16, h=64),
-# 2.6-3.1x at h=128, 2.8x at (d=32, h=256). XLA vectorizes small-d
-# chains on the VPU at ~roofline; the one-kernel path wins once the
-# conditioner matmuls are MXU-worthy.
-_CHAIN_MIN_BATCH = 4096
-_CHAIN_MIN_D = 16
-_CHAIN_MIN_HIDDEN = 64
-# JOINT-conditioner chains have their own (stricter) crossover — halving
-# the matmul count helps XLA more than the kernel, so the kernel wins
-# later (measured interleaved, 2¹⁸ rows: d=16 h=64 → 0.66x, d=32 h=128
-# → 1.30x, d=32 h=256 → 2.3x; docs/design.md §10)
-_CHAIN_MIN_D_JOINT = 32
-_CHAIN_MIN_HIDDEN_JOINT = 128
-
-
-def use_fused(batch_rows: int) -> bool:
-    """Per-layer fused-kernel gate — explicit opt-in only (see the
-    measurement note on ``_FUSED_MODE`` above)."""
-    del batch_rows
-    return _FUSED_MODE is True
-
-
-def use_fused_chain(batch_rows: int, d: int | None = None,
-                    max_hidden: int | None = None,
-                    joint: bool = False) -> bool:
-    """Whole-chain fusion gate (models/fused_chain.py). "auto" routes to
-    the one-kernel path only where it measured faster than XLA: on TPU,
-    flattened batch ≥ 4096 and (split chains) d ≥ 16 ∧ hidden ≥ 64, or
-    (chains containing a joint conditioner) d ≥ 32 ∧ hidden ≥ 128 —
-    separate crossovers, both measured (tables above)."""
-    if _FUSED_MODE is True:
-        return True
-    if _FUSED_MODE is False:
-        return False
-    min_d = _CHAIN_MIN_D_JOINT if joint else _CHAIN_MIN_D
-    min_h = _CHAIN_MIN_HIDDEN_JOINT if joint else _CHAIN_MIN_HIDDEN
-    return (
-        jax.default_backend() == "tpu"
-        and batch_rows >= _CHAIN_MIN_BATCH
-        and d is not None and d >= min_d
-        and max_hidden is not None and max_hidden >= min_h
-    )
-
-
-
-def _can_fuse_impl(layer, y):
-    rows = int(np.prod(y.shape[:-1])) if y.ndim > 1 else 1
-    return (
-        use_fused(rows)
-        and layer.axes.nn_input_dim > 0
-        and layer.axes.transform_dim > 0
-    )
-
-def _flatten_batch(y, theta):
-    """Collapse leading batch dims to one row axis for the 2D fused kernels."""
-    batch_shape = y.shape[:-1]
-    rows = int(np.prod(batch_shape)) if batch_shape else 1
-    return y.reshape(rows, y.shape[-1]), theta.reshape(rows, theta.shape[-1]), batch_shape
 
 
 @jax.tree_util.register_dataclass
@@ -182,10 +90,6 @@ class RNVPCouplingLayer:
     max_log_scale: float = dataclasses.field(
         metadata=dict(static=True), default=0.0)
 
-    def _can_fuse(self, y):
-        # the fused kernels implement the unbounded reference math only
-        return _can_fuse_impl(self, y) and not self.max_log_scale
-
     def _conditioner(self, y, theta):
         y_id, y_af = C.split_features(y, self.axes)
         h = C.nn_input(y_id, theta)
@@ -195,43 +99,20 @@ class RNVPCouplingLayer:
             s = m * jnp.tanh(s / m)
         return y_id, y_af, s, apply_mlp(self.t_net, h)
 
-    def _fused(self, y, theta, direction, with_ldj):
-        """Fused-Pallas path: one VMEM-resident kernel for conditioner MLPs
-        + affine + ldj (ops/pallas_coupling.py)."""
-        from ..ops.pallas_coupling import fused_coupling
-
-        y2, th2, batch_shape = _flatten_batch(y, theta)
-        y_id, y_af = C.split_features(y2, self.axes)
-        h = C.nn_input(y_id, th2)
-        out = fused_coupling(self.s_net, self.t_net, h, y_af,
-                             direction=direction, with_ldj=with_ldj)
-        if with_ldj:
-            y_out, ldj = out
-            y_full = C.recombine_features(y_id, y_out, self.axes)
-            return (y_full.reshape(y.shape), ldj.reshape(batch_shape))
-        y_full = C.recombine_features(y_id, out, self.axes)
-        return y_full.reshape(y.shape)
-
     def forward(self, z, theta):
         """latent → data with ldj (reference ``forward``, RNVP.jl:168-187)."""
-        if self._can_fuse(z):
-            return self._fused(z, theta, "forward", True)
         z_id, z_af, s, t = self._conditioner(z, theta)
         x_af, ldj = C.rnvp_forward(s, t, z_af)
         return C.recombine_features(z_id, x_af, self.axes), ldj
 
     def inverse(self, x, theta):
         """data → latent with ldj (reference ``backward``, RNVP.jl:150-165)."""
-        if self._can_fuse(x):
-            return self._fused(x, theta, "inverse", True)
         x_id, x_af, s, t = self._conditioner(x, theta)
         z_af, ldj = C.rnvp_backward(s, t, x_af)
         return C.recombine_features(x_id, z_af, self.axes), ldj
 
     def forward_(self, z, theta):
         """ldj-free sampling fast path (reference ``forward!``, RNVP.jl:190-205)."""
-        if self._can_fuse(z):
-            return self._fused(z, theta, "forward", False)
         z_id, z_af, s, t = self._conditioner(z, theta)
         return C.recombine_features(z_id, z_af * jnp.exp(s) + t, self.axes)
 
@@ -256,12 +137,10 @@ class JointRNVPCouplingLayer:
     the conditioner is parameterized. The reference keeps separate
     ``s_net``/``t_net`` (RNVP.jl:41-48) and the split
     :class:`RNVPCouplingLayer` preserves that for parity; this form is
-    the standard RealNVP/Glow choice and the TPU-efficient one: half the
-    matmul count per layer, and the narrow badly-MXU-shaped matmuls
-    (first layer K = n+|id|, last layer N = |af|) occur once per layer
-    instead of twice, with the last head twice as wide (N = 2|af|).
-    Measured on v5e at the wide config: see README §Performance /
-    docs/design.md §10.
+    the standard RealNVP/Glow choice: half the matmul count per layer,
+    and the narrow matmuls (first layer K = n+|id|, last layer N = |af|)
+    occur once per layer instead of twice, with the last head twice as
+    wide (N = 2|af|).
 
     Build with ``coupling_layer(..., joint_conditioner=True)``.
     """
@@ -315,45 +194,21 @@ class NICECouplingLayer:
     t_net: MLP
     axes: CouplingAxes = dataclasses.field(metadata=dict(static=True))
 
-    def _can_fuse(self, y):
-        return _can_fuse_impl(self, y)
-
     def _conditioner(self, y, theta):
         y_id, y_af = C.split_features(y, self.axes)
         return y_id, y_af, apply_mlp(self.t_net, C.nn_input(y_id, theta))
 
-    def _fused(self, y, theta, direction, with_ldj):
-        from ..ops.pallas_coupling import fused_coupling
-
-        y2, th2, batch_shape = _flatten_batch(y, theta)
-        y_id, y_af = C.split_features(y2, self.axes)
-        h = C.nn_input(y_id, th2)
-        out = fused_coupling(None, self.t_net, h, y_af,
-                             direction=direction, with_ldj=with_ldj)
-        if with_ldj:
-            y_out, ldj = out
-            y_full = C.recombine_features(y_id, y_out, self.axes)
-            return (y_full.reshape(y.shape), ldj.reshape(batch_shape))
-        y_full = C.recombine_features(y_id, out, self.axes)
-        return y_full.reshape(y.shape)
-
     def forward(self, z, theta):
-        if self._can_fuse(z):
-            return self._fused(z, theta, "forward", True)
         z_id, z_af, t = self._conditioner(z, theta)
         x_af, ldj = C.nice_forward(t, z_af)
         return C.recombine_features(z_id, x_af, self.axes), ldj
 
     def inverse(self, x, theta):
-        if self._can_fuse(x):
-            return self._fused(x, theta, "inverse", True)
         x_id, x_af, t = self._conditioner(x, theta)
         z_af, ldj = C.nice_backward(t, x_af)
         return C.recombine_features(x_id, z_af, self.axes), ldj
 
     def forward_(self, z, theta):
-        if self._can_fuse(z):
-            return self._fused(z, theta, "forward", False)
         z_id, z_af, t = self._conditioner(z, theta)
         return C.recombine_features(z_id, z_af + t, self.axes)
 
@@ -479,7 +334,7 @@ def coupling_layer(
     ``joint_conditioner=True`` (RNVP only) builds a
     :class:`JointRNVPCouplingLayer`: ONE conditioner MLP emitting
     ``(s ‖ t)`` instead of two — half the matmuls per layer, the
-    TPU-efficient standard-RealNVP parameterization (the split default
+    standard-RealNVP parameterization (the split default
     preserves the reference's separate s/t nets). Requires the s/t
     network hyperparameters to agree (one net serves both heads).
 
@@ -487,9 +342,7 @@ def coupling_layer(
     when > 0, soft-clamps the log-scale to (−M, M) via ``M·tanh(s/M)``
     so out-of-distribution inputs yield very negative (finite) log-probs
     instead of the exp(s) overflow→NaN cascade. Near-identity within
-    |s| ≲ M/2, so in-distribution densities are unchanged. Clamped
-    layers take the jnp path (the fused kernels implement the exact
-    reference math).
+    |s| ≲ M/2, so in-distribution densities are unchanged.
     """
     from ..data import DataArrays  # local import to avoid a cycle
 

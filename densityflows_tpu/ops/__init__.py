@@ -1,1 +1,1 @@
-"""Transform kernels: jnp reference path + fused Pallas TPU kernels."""
+"""Transform kernels: the jnp path + the whole-chain Pallas fold kernel."""

@@ -1,6 +1,6 @@
 """Affine-coupling transform kernels (pure jnp reference path).
 
-TPU-native counterpart of the reference transform layer
+JAX counterpart of the reference transform layer
 (/root/reference/src/affine/RNVP.jl, /root/reference/src/affine/NICE.jl).
 Math parity (SURVEY.md §2.4.5):
 
@@ -16,9 +16,9 @@ cannot differentiate its ``selectdim`` scatter writes
 (src/affine/RNVP.jl:99-147, src/affine/NICE.jl:84-115), this path needs
 none: the split/recombine is expressed as static gathers that ``jax.grad``
 differentiates exactly, and XLA fuses the exp/mul/add chain into the
-conditioner matmuls. A fused Pallas kernel for the hot shapes lives in
-``ops/pallas_coupling.py``; this module is the correctness oracle and the
-small-shape fallback.
+conditioner matmuls. This module is the one training path and the
+correctness reference for the whole-chain fold kernel
+(``ops/pallas_chain.py``).
 
 All index sets are trace-time constants (tuples from
 :class:`~densityflows_tpu.axes.CouplingAxes`), so each layer's

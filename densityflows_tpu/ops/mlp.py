@@ -109,14 +109,12 @@ def apply_mlp(mlp: MLP, x: jax.Array) -> jax.Array:
     """Apply the MLP along the last axis of ``x``: (batch..., in) → (batch..., out).
 
     Compute runs in the WEIGHTS' dtype end-to-end (bf16 weights →
-    native-bf16 MXU passes with the MXU's internal f32 accumulation;
-    bias/activation in bf16; one cast back to ``x.dtype`` at the end).
-    Keeping the inter-layer activations in the weights' dtype is what
-    makes the BACKWARD matmuls bf16 too — an f32 epilogue per layer
-    (the previous formulation) makes every cotangent f32, silently
-    promoting dL/dW and dL/dx to half-rate f32 MXU passes (~2/3 of
-    training FLOPs). Measured: the f32-epilogue version capped the wide
-    train config at ~30% MFU.
+    bf16 tensor-core passes with f32 accumulation; bias/activation in
+    bf16; one cast back to ``x.dtype`` at the end). Keeping the
+    inter-layer activations in the weights' dtype is what makes the
+    BACKWARD matmuls bf16 too — an f32 epilogue per layer makes every
+    cotangent f32, silently promoting dL/dW and dL/dx (~2/3 of training
+    FLOPs) to f32 matmuls.
     """
     act = ACTIVATIONS[mlp.activation]
     n = len(mlp.weights)

@@ -1,64 +1,59 @@
-"""Whole-chain fused Pallas TPU kernel: every flow layer in ONE pass.
+"""Whole-chain fold kernel for the GPU (Pallas, Triton route).
 
-The per-layer fused kernels in ``ops/pallas_coupling.py`` still round-trip
-the batch through HBM once per layer (each ``pallas_call`` reads the batch
-tile, computes one coupling, writes it back). For inference paths — the
-sampling sweep (the reference's ``forward!`` fold,
-/root/reference/src/Chains.jl:187-197) and density evaluation
-(``logpdf`` = backward fold + base, /root/reference/src/Flows.jl:272-281)
-— the whole chain is a fixed static composition, so it can run as ONE
-kernel: each grid step loads a (TB, d) batch tile + (TB, n) θ tile into
-VMEM once, folds it through *all* layers (conditioner MLPs on the MXU,
-affine/ldj on the VPU), and writes the result once. HBM traffic drops from
-O(layers · B · d) to O(B · d), and per-kernel launch/dispatch overhead is
-paid once per program instead of once per layer.
+One ``pallas_call`` folds a row tile through EVERY flow layer: each block
+loads a (TB, D) batch tile and its (TB, N) θ tile once, runs every
+conditioner MLP with the tile's activations held in registers, applies
+the affine/ldj epilogues, and writes the result once. Weights are read
+from global memory; they total a few MB and stay in the 50 MB L2. The
+saving over XLA's per-layer fold is the inter-layer activation traffic:
+at d=32, h=256 and 2¹⁸ rows each conditioner layer's f32 activations are
+256 MB, so the straight fold round-trips them through device memory once
+per dense layer.
 
-Measured on v5e, that traffic saving does NOT translate into speed: these
-chains are compute-bound and XLA fuses the per-layer fold at least as
-well (numbers in the models/fused_chain.py docstring) — so the policy
-layer only routes here on explicit ``set_fused_kernels(True)``.
+This module is layer-agnostic: it executes a *plan* — a static tuple of
+op descriptors — against a flat tuple of parameter arrays, built from a
+``FlowChain`` by ``models/fused_chain.py``. Every parameter arrives
+padded to the kernel's shapes: the feature width to ``D`` and the θ
+width to ``N`` (powers of two ≥ 16, the smallest dot operand Triton
+takes), hidden widths to ``H`` (a power of two ≥ 16). Zero padding is
+exact: padded hidden units meet zero rows of the next weight, padded
+feature columns get zero ``s``/``t`` and stay zero.
 
-This module is layer-agnostic: it executes a *plan* — a static tuple of op
-descriptors — against a flat tuple of parameter arrays. The plan is built
-from a ``FlowChain`` by ``models/fused_chain.py`` (which knows the layer
-types); keeping the interpreter here avoids an ops→models import cycle.
+Op codes (``plan`` entries):
 
-Op codes (``plan`` entries; ``P`` = number of params consumed):
+- ``("couplings", count, ("coupling", kind, dirn, n_s, n_t, act_s, act_t,
+  bias_s, bias_t, has_th, has_id, clamp))`` — a run of ``count`` affine
+  couplings (kind ``"nvp"``/``"nice"``/``"joint"``) with one signature,
+  each parameter stacked along a leading ``count`` axis; the kernel loops
+  over the run, so its code is compiled once however deep the chain. The
+  feature split/recombine of the jnp path
+  (``ops/coupling.py``) is folded into the conditioner weights outside
+  the kernel: the first dense layer is pre-split into a θ part (N, H) and
+  a zero-padded x part (D, H); the last dense layer scatters into D-wide
+  ``s``/``t`` that are exactly zero on identity dims, so the transform is
+  the elementwise ``y = x·exp(s) + t``. Params per net: first-layer
+  weights (1 or 2), hidden weights (n_layers−2), final weight, then one
+  bias per dense layer when present. ``"joint"`` runs one shared stack
+  into two folded heads: first-layer blocks, n_layers−2 hidden weights,
+  s head, t head, then n_layers−1 stack biases + 2 head biases.
+- ``("affine",)`` — elementwise ``x·a + b``. Params: ``a``, ``b`` (1, D).
+- ``("linear",)`` — ``x @ A``. Params: ``A`` (D, D). Runs at IEEE f32
+  (permutations must stay exact).
+- ``("logit", dirn, eps)`` — smooth box bijection. Params: ``lo``,
+  ``hi``, ``wlog`` = log(hi−lo), each (1, D); only for unpadded D.
 
-- ``("coupling", kind, dirn, n_s, n_t, act_s, act_t, bias_s, bias_t,
-  has_th, has_id)`` — affine coupling (kind ``"nvp"``/``"nice"``). The
-  feature split/recombine of the jnp path (``ops/coupling.py``) is
-  **folded into the conditioner weights outside the kernel** (see
-  models/fused_chain.py): the first dense layer is pre-split into a θ
-  part (n, H) and a zero-padded x part (d, H) so the conditioner input
-  needs no concat/gather; the last dense layer is post-multiplied by the
-  af-scatter so the nets emit d-wide ``s_full``/``t_full`` that are
-  exactly zero on identity dims. The transform is then pure VPU
-  elementwise — ``y = x·exp(s_full) + t_full`` — which is exact on
-  identity dims (exp(0)=1, t=0), keeps the batch out of any matmul
-  (bf16 MXU passes never touch x), and needs zero selection matmuls.
-  Params per net: first-layer weights (1 or 2), hidden weights
-  (n_layers−2), folded final weight, then n_layers biases when present.
-  Kind ``"joint"`` (the two-headed ``JointRNVPCouplingLayer``) runs ONE
-  shared stack whose activations hit TWO folded (H, d) head weights —
-  params: first-layer blocks, n_layers−2 hidden weights, s-head weight,
-  t-head weight, then n_layers−1 stack biases + 2 head biases.
-- ``("affine",)`` — elementwise ``x·a + b`` with constant per-sample ldj.
-  Params: ``a`` (1,d), ``b`` (1,d), ``c`` (1,1). Covers
-  Normalization/ActNorm layers, whose scale/shift/ldj are precomputed
-  outside the kernel per direction.
-- ``("linear",)`` — ``x @ A`` with constant ldj, run at
-  ``Precision.HIGHEST`` (x must not be truncated to bf16 by the default
-  MXU pass). Params: ``A`` (d,d), ``c`` (1,1). Covers permutation and
-  LU-linear layers (the sampling-direction inverse ``W⁻ᵀ`` is formed
-  outside: d×d, once per call).
-- ``("logit", dirn, eps)`` — smooth box bijection. Params: ``lo`` (1,d),
-  ``hi`` (1,d), ``wlog`` (1,d) = log(hi−lo).
+Constant log-determinants (normalization, actnorm, linear layers) are
+summed outside the kernel by the caller.
 
-Gradients: callers wrap this in a ``jax.custom_vjp`` whose backward falls
-back to the pure-jnp per-layer path (models/fused_chain.py) — the fused
-chain targets inference throughput; training keeps the per-layer fused
-kernels with their real fused backward (ops/pallas_coupling.py).
+Precision: conditioner dots take f32 operands at ``Precision.DEFAULT``,
+which Triton runs as TF32 with f32 accumulation — the same arithmetic
+XLA's GPU backend uses for an f32 matmul at default precision. The hidden
+dimension is tiled into ``C``-wide column chunks: the last hidden layer
+of each conditioner runs one chunk per loop step straight into the
+output layer, so no block ever holds a whole (H, H) weight.
+
+Gradients: the caller wraps this in a ``jax.custom_vjp`` whose backward
+runs the plain jnp fold (models/fused_chain.py).
 """
 
 from __future__ import annotations
@@ -67,16 +62,28 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["run_chain", "run_chain_sample", "chain_vmem_bytes",
-           "pick_tile_rows"]
+__all__ = ["run_chain", "op_param_count", "tile_shape", "pow2_width"]
 
-# VMEM working-set ceiling for auto tile selection (bytes). v5e has ~16 MB
-# per core; leave headroom for Mosaic's double-buffering of row tiles.
-_VMEM_BUDGET = 10 * 1024 * 1024
+
+def pow2_width(w: int) -> int:
+    """Smallest power of two ≥ max(w, 16): Triton blocks are powers of
+    two, and a dot operand needs every dimension ≥ 16."""
+    return max(16, 1 << max(0, int(w) - 1).bit_length())
+
+
+def tile_shape(hidden: int) -> tuple[int, int, int, int]:
+    """(rows per block, hidden chunk width, warps, pipeline stages) for a
+    padded hidden width: the best of the tiles tried on the H100 (PERF.md,
+    "Kernel decisions"). At hidden ≥ 256 wider chunks or more stages
+    overflow the block's 227 KB of shared memory."""
+    if hidden <= 128:
+        return 128, hidden, 4, 1
+    if hidden <= 256:
+        return 128, 64, 8, 2
+    return 32, 64, 4, 1
 
 
 def _act(name, u):
@@ -102,411 +109,286 @@ def _act(name, u):
     raise ValueError(f"unsupported activation for fused chain: {name}")
 
 
-def _net_param_count(n_layers, has_bias, has_th, has_id) -> int:
-    # first layer contributes (has_th + has_id) weight blocks, then
-    # n_layers-1 more weights; biases are one per dense layer
-    w = (1 if has_th else 0) + (1 if has_id else 0) + (n_layers - 1)
-    return w + (n_layers if has_bias else 0)
-
-
 def coupling_param_count(op) -> int:
     (_, kind, _, n_s, n_t, _, _, bias_s, bias_t, has_th, has_id,
      _clamp) = op
+    first = (1 if has_th else 0) + (1 if has_id else 0)
     if kind == "joint":
-        # shared stack of n_s dense layers whose FINAL layer splits into
-        # two folded (H, d) heads: first-layer blocks + (n_s−2) hidden
-        # weights + 2 head weights; biases = (n_s−1) stack + 2 head
-        w = (1 if has_th else 0) + (1 if has_id else 0) + (n_s - 2) + 2
-        return w + ((n_s + 1) if bias_s else 0)
-    c = _net_param_count(n_t, bias_t, has_th, has_id)
+        return first + n_s + ((n_s + 1) if bias_s else 0)
+
+    def net(n_layers, has_bias):
+        return first + n_layers - 1 + (n_layers if has_bias else 0)
+
+    c = net(n_t, bias_t)
     if kind == "nvp":
-        c += _net_param_count(n_s, bias_s, has_th, has_id)
+        c += net(n_s, bias_s)
     return c
 
 
 def op_param_count(op) -> int:
     tag = op[0]
-    if tag == "coupling":
-        return coupling_param_count(op)
+    if tag == "couplings":
+        return coupling_param_count(op[2])
     if tag == "affine":
-        return 3
-    if tag == "linear":
         return 2
+    if tag == "linear":
+        return 1
     if tag == "logit":
         return 3
     raise ValueError(f"unknown chain op {tag!r}")
 
 
-def _net_refs(prefs, k, n_layers, has_bias, has_th, has_id):
-    n_w = (1 if has_th else 0) + (1 if has_id else 0) + (n_layers - 1)
-    ws = prefs[k:k + n_w]; k += n_w
-    bs = prefs[k:k + n_layers] if has_bias else [None] * n_layers
-    k += n_layers if has_bias else 0
-    return ws, bs, k
+class _Layer:
+    """View of one layer ``l`` (static or traced) of a stacked
+    (count, r, c) parameter ref: indexes like an (r, c) ref."""
+
+    def __init__(self, ref, l):
+        self.ref, self.l = ref, l
+
+    @property
+    def shape(self):
+        return self.ref.shape[1:]
+
+    def __getitem__(self, idx):
+        if idx is Ellipsis:
+            idx = (slice(None), slice(None))
+        return self.ref[(self.l,) + tuple(idx)]
 
 
-def _folded_mlp(x, th, ws, bs, act, n_layers, has_th, has_id):
-    """Conditioner with the split first layer and folded final layer:
-    u1 = θ @ W1θ + x @ W1x (W1x zero-padded to d rows outside), then the
-    hidden stack, then the folded final weight emitting d-wide output."""
-    i = 0
+def _dot(a, w):
+    # TF32 operands, f32 accumulation (see module docstring)
+    return jax.lax.dot(a, w.astype(jnp.float32),
+                       precision=jax.lax.Precision.DEFAULT,
+                       preferred_element_type=jnp.float32)
+
+
+def _cols(ref, j, c):
+    return ref[:, pl.ds(j * c, c)]
+
+
+def _first_chunk(x, th, w_refs, b_ref, j, c):
+    """Hidden chunk ``j`` of the input layer: θ@W1θ[:, j] + x@W1x[:, j]."""
     u = None
-    if has_th:
-        u = jnp.dot(th, ws[i][:].astype(jnp.float32),
-                    preferred_element_type=jnp.float32)
-        i += 1
-    if has_id:
-        ux = jnp.dot(x, ws[i][:].astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
-        u = ux if u is None else u + ux
-        i += 1
-    if bs[0] is not None:
-        u = u + bs[0][:].astype(jnp.float32)
-    a = _act(act, u)
-    for layer in range(1, n_layers):
-        u = jnp.dot(a, ws[i][:].astype(jnp.float32),
-                    preferred_element_type=jnp.float32)
-        i += 1
-        if bs[layer] is not None:
-            u = u + bs[layer][:].astype(jnp.float32)
-        a = _act(act, u) if layer < n_layers - 1 else u
-    return a
+    for inp, w in zip((th, x), w_refs):
+        if inp is None or w is None:
+            continue
+        t = _dot(inp, _cols(w, j, c))
+        u = t if u is None else u + t
+    if b_ref is not None:
+        u = u + _cols(b_ref, j, c).astype(jnp.float32)
+    return u
 
 
-def _joint_mlp(x, th, prefs, op):
-    """Two-headed conditioner: ONE shared stack, its activations hitting
-    TWO folded (H, d) head weights — (s_full, t_full) from one pass (the
-    JointRNVPCouplingLayer parameterization, models/layers.py)."""
-    (_, _, _, n_layers, _, act, _, has_bias, _, has_th, has_id,
-     _clamp) = op
-    n_w = (1 if has_th else 0) + (1 if has_id else 0) + (n_layers - 2) + 2
-    ws = prefs[:n_w]
-    bs = prefs[n_w:] if has_bias else []
-    i = 0
+def _hidden_chunk(a, w_ref, b_ref, j, c):
+    """Output chunk ``j`` of a dense layer over input chunks ``a``:
+    Σ_k a_k @ W[k, j] (+ b_j)."""
     u = None
-    if has_th:
-        u = jnp.dot(th, ws[i][:].astype(jnp.float32),
-                    preferred_element_type=jnp.float32)
-        i += 1
-    if has_id:
-        ux = jnp.dot(x, ws[i][:].astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
-        u = ux if u is None else u + ux
-        i += 1
-    if has_bias:
-        u = u + bs[0][:].astype(jnp.float32)
-    a = _act(act, u)
-    for layer in range(1, n_layers - 1):  # hidden stack (shared)
-        u = jnp.dot(a, ws[i][:].astype(jnp.float32),
-                    preferred_element_type=jnp.float32)
-        i += 1
-        if has_bias:
-            u = u + bs[layer][:].astype(jnp.float32)
-        a = _act(act, u)
-    s_full = jnp.dot(a, ws[i][:].astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
-    t_full = jnp.dot(a, ws[i + 1][:].astype(jnp.float32),
-                     preferred_element_type=jnp.float32)
-    if has_bias:
-        s_full = s_full + bs[n_layers - 1][:].astype(jnp.float32)
-        t_full = t_full + bs[n_layers][:].astype(jnp.float32)
-    return s_full, t_full
+    for k, ak in enumerate(a):
+        t = _dot(ak, w_ref[pl.ds(k * c, c), pl.ds(j * c, c)])
+        u = t if u is None else u + t
+    if b_ref is not None:
+        u = u + _cols(b_ref, j, c).astype(jnp.float32)
+    return u
 
 
-def _apply_coupling(op, prefs, x, th, ldj):
+def _mlp(x, th, ws, bs, act, n_layers, has_th, has_id, c, heads=1):
+    """Folded conditioner. ``ws``: first-layer blocks, hidden weights,
+    ``heads`` output weights; ``bs``: one bias per layer (+ extra heads)
+    or empty. Returns a list of ``heads`` D-wide outputs.
+
+    Every layer but the last hidden one is kept as a static list of
+    (TB, C) chunks; the last hidden layer runs chunk by chunk in a loop
+    that feeds each chunk straight into the output layer, so a block
+    never holds a whole (H, H) weight and the loop body is compiled once.
+    """
+    n_first = (1 if has_th else 0) + (1 if has_id else 0)
+    first = list(ws[:n_first])
+    w_first = (first.pop(0) if has_th else None,
+               first.pop(0) if has_id else None)
+    hidden = ws[n_first:len(ws) - heads]
+    outs = ws[len(ws) - heads:]
+    b = (lambda i: bs[i]) if bs else (lambda i: None)
+    n_chunks = outs[0].shape[0] // c
+    if hidden:
+        a = [_act(act, _first_chunk(x, th, w_first, b(0), j, c))
+             for j in range(n_chunks)]
+        for i, w in enumerate(hidden[:-1]):
+            a = [_act(act, _hidden_chunk(a, w, b(i + 1), j, c))
+                 for j in range(n_chunks)]
+        last = lambda j: _hidden_chunk(a, hidden[-1], b(len(hidden)), j, c)
+    else:
+        last = lambda j: _first_chunk(x, th, w_first, b(0), j, c)
+
+    def body(j, acc):
+        u = _act(act, last(j))
+        return tuple(o + _dot(u, w[pl.ds(j * c, c), :])
+                     for o, w in zip(acc, outs))
+
+    zero = jnp.zeros((x.shape[0], outs[0].shape[1]), jnp.float32)
+    acc = jax.lax.fori_loop(0, n_chunks, body, (zero,) * heads)
+    return [o if b(n_layers - 1 + h) is None
+            else o + b(n_layers - 1 + h)[...].astype(jnp.float32)
+            for h, o in enumerate(acc)]
+
+
+def _apply_coupling(op, prefs, x, th, ldj, c):
     (_, kind, dirn, n_s, n_t, act_s, act_t, bias_s, bias_t,
      has_th, has_id, clamp) = op
-    k = 0
+    n_first = (1 if has_th else 0) + (1 if has_id else 0)
     if kind == "joint":
-        s_full, t_full = _joint_mlp(x, th, prefs, op)
-    elif kind == "nvp":
-        ws, bsb, k = _net_refs(prefs, k, n_s, bias_s, has_th, has_id)
-        s_full = _folded_mlp(x, th, ws, bsb, act_s, n_s, has_th, has_id)
-    if kind != "joint":
-        wt, btb, k = _net_refs(prefs, k, n_t, bias_t, has_th, has_id)
-        t_full = _folded_mlp(x, th, wt, btb, act_t, n_t, has_th, has_id)
-
-    # s_full/t_full are exactly 0 on identity dims (folded scatter), so
-    # the full-width transform IS the coupling: identity dims see
-    # x·exp(0)+0 = x. Math parity: RNVP.jl:77-96, 168-187.
-    if kind in ("nvp", "joint"):
-        if clamp:
-            # Glow-style tanh soft-clamp (layers.py max_log_scale);
-            # tanh(0) = 0 keeps the folded zeros on identity dims
-            s_full = clamp * jnp.tanh(s_full / clamp)
-        if dirn == "fwd":
-            x = x * jnp.exp(s_full) + t_full
-            if ldj is not None:
-                ldj = ldj + jnp.sum(s_full, axis=-1, keepdims=True)
-        else:
-            x = (x - t_full) * jnp.exp(-s_full)
-            if ldj is not None:
-                ldj = ldj - jnp.sum(s_full, axis=-1, keepdims=True)
-    else:  # NICE (NICE.jl:63-81)
-        x = x + t_full if dirn == "fwd" else x - t_full
+        n_w = n_first + n_s
+        s, t = _mlp(x, th, prefs[:n_w], prefs[n_w:] if bias_s else (),
+                    act_s, n_s, has_th, has_id, c, heads=2)
+    else:
+        k = 0
+        s = None
+        if kind == "nvp":
+            n_w = n_first + n_s - 1
+            n_b = n_s if bias_s else 0
+            s, = _mlp(x, th, prefs[:n_w], prefs[n_w:n_w + n_b], act_s,
+                      n_s, has_th, has_id, c)
+            k = n_w + n_b
+        n_w = n_first + n_t - 1
+        t, = _mlp(x, th, prefs[k:k + n_w],
+                  prefs[k + n_w:] if bias_t else (), act_t, n_t,
+                  has_th, has_id, c)
+    # s/t are exactly 0 on identity and padded dims (folded scatter), so
+    # the full-width transform IS the coupling (RNVP.jl:77-96, 168-187)
+    if s is None:  # NICE (NICE.jl:63-81)
+        return (x + t if dirn == "fwd" else x - t), ldj
+    if clamp:
+        s = clamp * jnp.tanh(s / clamp)
+    if dirn == "fwd":
+        x = x * jnp.exp(s) + t
+        if ldj is not None:
+            ldj = ldj + jnp.sum(s, axis=-1)
+    else:
+        x = (x - t) * jnp.exp(-s)
+        if ldj is not None:
+            ldj = ldj - jnp.sum(s, axis=-1)
     return x, ldj
+
+
+def _apply_couplings(op, prefs, x, th, ldj, c):
+    """A run of ``count`` couplings with one signature, params stacked
+    along a leading axis: a loop over layers, compiled once."""
+    _, count, cop = op
+    if count == 1:
+        return _apply_coupling(cop, [_Layer(r, 0) for r in prefs], x, th,
+                               ldj, c)
+
+    def body(l, carry):
+        xx, lj = carry
+        return _apply_coupling(cop, [_Layer(r, l) for r in prefs], xx, th,
+                               lj, c)
+
+    return jax.lax.fori_loop(0, count, body, (x, ldj))
 
 
 def _apply_logit(op, prefs, x, ldj):
     _, dirn, eps = op
-    lo = prefs[0][:].astype(jnp.float32)
-    hi = prefs[1][:].astype(jnp.float32)
-    wlog = prefs[2][:].astype(jnp.float32)
+    lo = prefs[0][...].astype(jnp.float32)
+    hi = prefs[1][...].astype(jnp.float32)
+    wlog = prefs[2][...].astype(jnp.float32)
     if dirn == "fwd":  # z → x = lo + (hi−lo)·σ(z)
         z = x
         x = lo + (hi - lo) * jax.nn.sigmoid(z)
     else:  # x → z = logit((x−lo)/(hi−lo)), clamped
-        u = (x - lo) / (hi - lo)
-        u = jnp.clip(u, eps, 1.0 - eps)
+        u = jnp.clip((x - lo) / (hi - lo), eps, 1.0 - eps)
         z = jnp.log(u) - jnp.log1p(-u)
         x = z
     if ldj is not None:
-        per = -jax.nn.softplus(-z) - jax.nn.softplus(z) + wlog
-        row = jnp.sum(per, axis=-1, keepdims=True)
+        row = jnp.sum(-jax.nn.softplus(-z) - jax.nn.softplus(z) + wlog,
+                      axis=-1)
         ldj = ldj + row if dirn == "fwd" else ldj - row
     return x, ldj
 
 
-def _apply_plan(plan, param_refs, x, th, with_ldj):
-    ldj = jnp.zeros((x.shape[0], 1), jnp.float32) if with_ldj else None
-    for op, prefs in zip(plan, param_refs):
-        tag = op[0]
-        if tag == "coupling":
-            x, ldj = _apply_coupling(op, prefs, x, th, ldj)
-        elif tag == "affine":
-            a = prefs[0][:].astype(jnp.float32)
-            b = prefs[1][:].astype(jnp.float32)
-            x = x * a + b
-            if with_ldj:
-                ldj = ldj + prefs[2][:].astype(jnp.float32)
-        elif tag == "linear":
-            # HIGHEST so x is not truncated to bf16 by the default MXU
-            # pass (permutations must be numerically exact)
-            x = jnp.dot(x, prefs[0][:].astype(jnp.float32),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST)
-            if with_ldj:
-                ldj = ldj + prefs[1][:].astype(jnp.float32)
-        elif tag == "logit":
-            x, ldj = _apply_logit(op, prefs, x, ldj)
-    return x, ldj
-
-
-def _split_param_refs(plan, refs, i):
-    param_refs = []
-    for op in plan:
-        c = op_param_count(op)
-        param_refs.append(refs[i:i + c])
-        i += c
-    return param_refs, i
-
-
-def _chain_kernel(plan, n, with_ldj, out_dtype, *refs):
+def _chain_kernel(plan, has_theta, with_ldj, c, *refs):
     i = 0
     x_ref = refs[i]; i += 1
     th_ref = None
-    if n:
+    if has_theta:
         th_ref = refs[i]; i += 1
-    param_refs, i = _split_param_refs(plan, refs, i)
-    out_ref = refs[i]; i += 1
-    ldj_ref = refs[i] if with_ldj else None
-
-    x = x_ref[:].astype(jnp.float32)
-    th = th_ref[:].astype(jnp.float32) if th_ref is not None else None
-    x, ldj = _apply_plan(plan, param_refs, x, th, with_ldj)
-
-    out_ref[:] = x.astype(out_dtype)
-    if with_ldj:
-        ldj_ref[:] = ldj
-
-
-def _sample_kernel(plan, n, tb, d, out_dtype, *refs):
-    """Fused sampling: draw r ~ N(0, I) IN-KERNEL (per-core PRNG +
-    Box–Muller) and fold it through the whole chain — the base draw never
-    touches HBM, and the reference's separate rand + forward! dispatch
-    (src/Flows.jl:157-172) collapses into one output-only kernel."""
-    i = 0
-    seed_ref = refs[i]; i += 1
-    th_ref = None
-    if n:
-        th_ref = refs[i]; i += 1
-    param_refs, i = _split_param_refs(plan, refs, i)
-    out_ref = refs[i]
-
-    # distinct stream per batch tile; deterministic in (key, tile).
-    # Mosaic accepts at most TWO seed words on v5e, so the tile index is
-    # mixed into the first word with a Weyl-sequence odd constant
-    # (int32 wraparound is the intended mixing).
-    tile_mix = pl.program_id(0) * np.int32(-1640531527)  # 2654435769 mod 2^32
-    pltpu.prng_seed(seed_ref[0] + tile_mix, seed_ref[1])
-    bits1 = pltpu.prng_random_bits((tb, d))
-    bits2 = pltpu.prng_random_bits((tb, d))
-    # shift-then-mask extracts original bits [8..31] as a uniform int in
-    # [0, 2^24) even though prng_random_bits is int32 on TPU (a bare
-    # arithmetic >> of negative bits gave u ∉ [0,1) → NaNs in the sqrt —
-    # caught on hardware, invisible to the zero-stubbed CPU interpreter;
-    # Mosaic has no uint32→f32 cast, hence the int-domain mask)
-    m24 = jnp.int32(0x00FFFFFF)
-    # 24-bit mantissa uniforms: u1 ∈ [0,1) so 1−u1 ∈ (0,1] keeps the log
-    # finite; tail caps at √(−2·ln 2⁻²⁴) ≈ 5.8σ (standard f32 sampler cap)
-    u1 = ((bits1 >> 8) & m24).astype(jnp.float32) * (1.0 / 16777216.0)
-    u2 = ((bits2 >> 8) & m24).astype(jnp.float32) * (1.0 / 16777216.0)
-    r = jnp.sqrt(-2.0 * jnp.log1p(-u1)) * jnp.cos(
-        (2.0 * np.pi) * u2
-    )
-
-    th = th_ref[:].astype(jnp.float32) if th_ref is not None else None
-    x, _ = _apply_plan(plan, param_refs, r, th, False)
-    out_ref[:] = x.astype(out_dtype)
-
-
-def chain_vmem_bytes(plan, params, d: int, n: int, tb: int) -> int:
-    """Rough VMEM working set: resident params + row tiles + the widest
-    live activations of any single op at ``tb`` rows (fp32)."""
-    param_bytes = sum(int(np.prod(p.shape)) * 4 for p in params)
-    widest = d + n
-    if any(op[0] == "coupling" for op in plan):
-        max_w = max(int(p.shape[-1]) for p in params if p.ndim == 2)
-        widest = max(widest, d + n + 3 * max_w)
-    rows = tb * (d + n + widest) * 4
-    return param_bytes + 2 * rows  # ×2 for Mosaic tile double-buffering
-
-
-def pick_tile_rows(plan, params, d: int, n: int, rows: int) -> int:
-    # tb capped at 1024: Mosaic's true scoped-vmem stack exceeds this
-    # estimate at tb=2048 (compile-time OOM at e.g. d=16/hidden=128), and
-    # the measured tile sweep never favored 2048 over 1024 anyway
-    for tb in (1024, 512, 256, 128):
-        if tb <= max(rows, 8) and chain_vmem_bytes(plan, params, d, n, tb) < _VMEM_BUDGET:
-            return tb
-    return 8
-
-
-def _row_spec(cols, tb):
-    return pl.BlockSpec((tb, cols), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-
-def _const_spec(shape):
-    nd = len(shape)
-    return pl.BlockSpec(shape, lambda i: (0,) * nd, memory_space=pltpu.VMEM)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("plan", "with_ldj", "tb", "interpret")
-)
-def _run(x, theta, flat_params, *, plan, with_ldj, tb, interpret):
-    B, d = x.shape
-    n = theta.shape[-1] if theta is not None else 0
-    grid = (pl.cdiv(B, tb),)
-    in_specs = [_row_spec(d, tb)]
-    args = [x]
-    if n:
-        in_specs.append(_row_spec(n, tb))
-        args.append(theta)
-    in_specs += [_const_spec(p.shape) for p in flat_params]
-    args += list(flat_params)
-    out_shape = [jax.ShapeDtypeStruct((B, d), x.dtype)]
-    out_specs = [_row_spec(d, tb)]
-    if with_ldj:
-        out_shape.append(jax.ShapeDtypeStruct((B, 1), jnp.float32))
-        out_specs.append(_row_spec(1, tb))
-
-    kernel = functools.partial(_chain_kernel, plan, n, with_ldj, x.dtype)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs if with_ldj else out_specs[0],
-        out_shape=out_shape if with_ldj else out_shape[0],
-        interpret=interpret,
-    )(*args)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("plan", "rows", "d", "tb", "interpret", "dtype")
-)
-def _run_sample(seed, theta, flat_params, *, plan, rows, d, tb, interpret,
-                dtype):
-    n = theta.shape[-1] if theta is not None else 0
-    grid = (pl.cdiv(rows, tb),)
-    in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)]
-    args = [seed]
-    if n:
-        if theta.shape[0] == 1:  # one θ for every draw — broadcast in VMEM
-            in_specs.append(_const_spec((1, n)))
+    x = x_ref[...].astype(jnp.float32)
+    th = th_ref[...].astype(jnp.float32) if th_ref is not None else None
+    ldj = jnp.zeros((x.shape[0],), jnp.float32) if with_ldj else None
+    for op in plan:
+        n_p = op_param_count(op)
+        prefs = refs[i:i + n_p]
+        i += n_p
+        tag = op[0]
+        if tag == "couplings":
+            x, ldj = _apply_couplings(op, prefs, x, th, ldj, c)
+        elif tag == "affine":
+            x = (x * prefs[0][...].astype(jnp.float32)
+                 + prefs[1][...].astype(jnp.float32))
+        elif tag == "linear":
+            x = jax.lax.dot(x, prefs[0][...].astype(jnp.float32),
+                            precision=jax.lax.Precision.HIGHEST,
+                            preferred_element_type=jnp.float32)
         else:
-            in_specs.append(_row_spec(n, tb))
+            x, ldj = _apply_logit(op, prefs, x, ldj)
+    out_ref = refs[i]
+    out_ref[...] = x.astype(out_ref.dtype)
+    if with_ldj:
+        refs[i + 1][...] = ldj
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("plan", "with_ldj", "hidden", "interpret"))
+def _run(x, theta, flat_params, *, plan, with_ldj, hidden, interpret):
+    rows, d = x.shape
+    tb, c, warps, stages = tile_shape(hidden)
+    row = lambda w: pl.BlockSpec((tb, w), lambda i: (i, 0))
+    whole = lambda p: pl.BlockSpec(p.shape, lambda i: (0,) * p.ndim)
+    in_specs, args = [row(d)], [x]
+    if theta is not None:
+        in_specs.append(row(theta.shape[-1]))
         args.append(theta)
-    in_specs += [_const_spec(p.shape) for p in flat_params]
+    in_specs += [whole(p) for p in flat_params]
     args += list(flat_params)
-    kernel = functools.partial(_sample_kernel, plan, n, tb, d, dtype)
+    out_shape = [jax.ShapeDtypeStruct((rows, d), x.dtype)]
+    out_specs = [row(d)]
+    if with_ldj:
+        out_shape.append(jax.ShapeDtypeStruct((rows,), jnp.float32))
+        out_specs.append(pl.BlockSpec((tb,), lambda i: (i,)))
+    kernel = functools.partial(_chain_kernel, plan, theta is not None,
+                               with_ldj, c)
     return pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(rows // tb,),
         in_specs=in_specs,
-        out_specs=_row_spec(d, tb),
-        out_shape=jax.ShapeDtypeStruct((rows, d), dtype),
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps,
+                                             num_stages=stages),
         interpret=interpret,
+        name="flow_chain_fold",
     )(*args)
 
 
-def run_chain_sample(plan, flat_params, seed, rows, d, theta, *, tb=None,
-                     interpret=None, dtype=jnp.float32):
-    """Fused base-draw + sampling sweep.
+def run_chain(plan, flat_params, x, theta, *, with_ldj, hidden,
+              interpret=False):
+    """Execute a padded chain plan over rows.
 
-    ``seed``: (2,) int32 (e.g. ``jax.random.key_data(key)``); draws are
-    deterministic in (seed, row) but are a different stream from
-    ``jax.random.normal``. ``theta``: (rows, n), (1, n) (broadcast to all
-    draws without materializing), or None. Returns (rows, d).
+    ``x``: (B, D); ``theta``: (B, N) or None; ``hidden``: the padded
+    hidden width every conditioner shares. Rows are zero-padded to a tile
+    multiple and sliced back (padded rows flow through every op without
+    NaNs). Returns ``(y, ldj)`` with ldj (B,) f32 — without the constant
+    per-layer terms — or just ``y``. ``interpret=True`` runs the Pallas
+    interpreter (CPU tests); otherwise the kernel compiles for the GPU.
     """
-    n = theta.shape[-1] if theta is not None else 0
-    if n == 0:
-        theta = None
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if tb is None:
-        tb = pick_tile_rows(plan, flat_params, d, n, rows)
-    rows_pad = rows + ((-rows) % tb)
-    if theta is not None and theta.shape[0] not in (1, rows):
-        raise ValueError("theta rows must be 1 or match the draw count")
-    if theta is not None and theta.shape[0] == rows and rows_pad != rows:
-        theta = jnp.concatenate(
-            [theta, jnp.zeros((rows_pad - rows, n), theta.dtype)], 0
-        )
-    out = _run_sample(seed, theta, tuple(flat_params), plan=plan,
-                      rows=rows_pad, d=d, tb=tb, interpret=interpret,
-                      dtype=dtype)
-    return out[:rows] if rows_pad != rows else out
-
-
-def run_chain(plan, flat_params, x, theta, *, with_ldj, tb=None,
-              interpret=None):
-    """Execute a chain plan on 2D tiles.
-
-    ``x``: (B, d); ``theta``: (B, n) or None/zero-width. Returns
-    ``(y, ldj)`` with ldj (B,) fp32, or just ``y`` when ``with_ldj`` is
-    False. Rows are padded to a tile multiple with zeros and sliced back
-    (padded rows flow through every op without NaNs: couplings see zero
-    conditioner inputs, the logit inverse clamps).
-    """
-    B, d = x.shape
-    n = theta.shape[-1] if theta is not None else 0
-    if n == 0:
-        theta = None
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if tb is None:
-        tb = pick_tile_rows(plan, flat_params, d, n, B)
-    pad = (-B) % tb
+    rows = x.shape[0]
+    tb = tile_shape(hidden)[0]
+    pad = (-rows) % tb
     if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad, d), x.dtype)], 0)
+        x = jnp.pad(x, ((0, pad), (0, 0)))
         if theta is not None:
-            theta = jnp.concatenate(
-                [theta, jnp.zeros((pad, n), theta.dtype)], 0
-            )
-    out = _run(x, theta, tuple(flat_params), plan=plan, with_ldj=with_ldj,
-               tb=tb, interpret=interpret)
-    if with_ldj:
-        y, ldj = out
-        return (y[:B], ldj[:B, 0]) if pad else (y, ldj[:, 0])
-    return out[:B] if pad else out
+            theta = jnp.pad(theta, ((0, pad), (0, 0)))
+    y, *ldj = _run(x, theta, tuple(flat_params), plan=plan,
+                   with_ldj=with_ldj, hidden=hidden, interpret=interpret)
+    y = y[:rows]
+    return (y, ldj[0][:rows]) if with_ldj else y

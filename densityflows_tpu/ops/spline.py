@@ -83,11 +83,10 @@ def rq_spline(inputs, params, *, bound: float = 3.0, inverse: bool = False,
     )
 
     # per-element bin select as a one-hot CONTRACTION, not a gather:
-    # jnp.take_along_axis lowers to per-element dynamic gathers that are
-    # catastrophically slow on TPU (measured 500× on v5e); multiplying by
-    # a (…, K)-one-hot and reducing keeps everything dense/vectorized at
-    # the cost of K-fold elementwise work — negligible next to the
-    # conditioner matmuls.
+    # jnp.take_along_axis lowers to per-element dynamic gathers;
+    # multiplying by a (…, K)-one-hot and reducing keeps everything
+    # dense/vectorized at the cost of K-fold elementwise work — small
+    # next to the conditioner matmuls.
     def take(a):
         oh = jax.nn.one_hot(k, a.shape[-1], dtype=a.dtype)
         return jnp.sum(a * oh, axis=-1)

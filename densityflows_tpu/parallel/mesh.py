@@ -115,10 +115,10 @@ def shard_params_tp(mesh: Mesh, model):
     spline params — is replicated. A weight whose sharded dimension isn't
     divisible by the ``model`` axis falls back to replicated.
 
-    Measured (see README §Performance): at the wide-emulator size
-    (hidden 256) replicated conditioners beat TP=2 — the matmuls are far
-    below the per-collective latency floor — so TP stays OPT-IN; this
-    placement exists for genuinely large conditioners.
+    TP stays OPT-IN: it has not been measured on cards, and at the
+    wide-emulator size (hidden 256) the matmuls are small next to a
+    collective's latency; this placement exists for genuinely large
+    conditioners.
     """
     from ..ops.mlp import MLP
 

@@ -34,10 +34,9 @@ class NetConfig:
     # 0.0 = reference semantics; > 0 tanh-clamps the RNVP log-scale
     # (models/layers.py max_log_scale) — ignored by other families
     max_log_scale: float = 0.0
-    # rnvp only: ONE two-headed conditioner emitting (s ‖ t) — the
-    # TPU-efficient parameterization, measured 1.79x the split form at
-    # the wide config (docs/design.md §10); False keeps the reference's
-    # separate s/t nets
+    # rnvp only: ONE two-headed conditioner emitting (s ‖ t) — half the
+    # conditioner FLOPs of the split form (docs/design.md §10); False
+    # keeps the reference's separate s/t nets
     joint_conditioner: bool = False
 
     def layer_kwargs(self) -> dict:

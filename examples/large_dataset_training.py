@@ -1,14 +1,9 @@
-"""Worked example: training at dataset scale with kernel-path visibility.
+"""Worked example: training at dataset scale, resident and streamed.
 
-Round 5 removed the fused-kernel envelope cliff: long runs chunk through
-the whole-run kernel, large datasets stream through the per-batch
-kernel, and every `train()` call records which path it ran. This example
-trains a conditional flow on 60k rows — far past the resident kernel's
-~10-15k-row envelope — and inspects the routing attributes.
-
-On a TPU the streaming kernel sustains ~13-14M samples/s regardless of
-row count (7.7x the jnp program at this size — design.md SS14c); on CPU
-everything runs the jnp program and the attributes say so.
+Trains a conditional flow on 60k rows twice: with ``df.train`` (the
+whole dataset in device memory, one program for the run) and with
+``df.train_streaming`` (batches assembled on the host from an array that
+could be a memmap larger than device memory).
 
 Run: python examples/large_dataset_training.py
 """
@@ -42,16 +37,14 @@ def main():
         df.normalization_layer(x, -1.0, 1.0),
     )
     flow = df.Flow(chain, data)
-
-    # verbose=True prints a one-line notice if the fused kernel declines
-    # (and which envelope item blocked it)
     df.train(flow, data, df.adam(1e-3), epochs=3, batchsize=64,
              verbose=True, key=jax.random.key(1))
+    print(f"resident: final valid NLL  = {flow.valid_loss[-1]:.3f}")
 
-    print(f"trained_path      = {flow.trained_path}")
-    print(f"fused_kernel_mode = {flow.fused_kernel_mode}")
-    print(f"decline reason    = {flow.fused_decline_reason}")
-    print(f"final valid NLL   = {flow.valid_loss[-1]:.3f}")
+    streamed = df.Flow(chain, data)
+    df.train_streaming(streamed, x, theta, epochs=3, batchsize=64,
+                       verbose=True)
+    print(f"streamed: final train NLL  = {streamed.train_loss[-1]:.3f}")
 
     s = flow.sample((10_000,), (0.5,), key=jax.random.key(2))
     print(f"10k conditional draws at theta=0.5: mean "

@@ -4,7 +4,7 @@ Demonstrates the REAL multi-host path — ``jax.distributed`` bootstrap,
 per-host batch assembly through ``jax.make_array_from_process_local_data``
 (no host ever holds the global array), the GSPMD-inserted gradient psum,
 streaming DP, and a cross-process checkpoint — by spawning 2 local
-processes with 4 virtual CPU devices each. On a real TPU pod slice the
+processes with 4 virtual CPU devices each. On a multi-node GPU cluster the
 ONLY changes are: drop the XLA_FLAGS virtual-device forcing, and let
 ``distributed_init()`` read the coordinator from the environment.
 

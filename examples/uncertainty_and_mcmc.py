@@ -1,6 +1,6 @@
 """Worked example: deep-ensemble density fit + flow-accelerated MCMC + SBC.
 
-1. Trains a 5-member ensemble on a bimodal 2-D target (one vmapped fused
+1. Trains a 5-member ensemble on a bimodal 2-D target (one vmapped
    program — K flows, one compile, one dispatch) and reads epistemic
    uncertainty off the member spread.
 2. Uses one member as the proposal for independence-MH MCMC on the exact

@@ -140,34 +140,6 @@ def main() -> None:
     except ValueError:
         pass
 
-    # mesh fused-step program across BOTH processes (r5): fake the TPU
-    # backend so routing engages; the kernel runs interpreted (interpret
-    # resolves from the real device platform). Must reproduce the jnp
-    # GSPMD run above batch-for-batch.
-    import densityflows_tpu.train as df_train
-
-    # fresh identical chain: the first train() donated the original
-    # chain's buffers (same reason sflow reuses flow.model above)
-    chain2 = df.flow_chain(
-        df.coupling_block(data, None, key=jax.random.key(0),
-                          hidden_dim_s=16, hidden_dim_t=16),
-        df.normalization_layer(x, -1.0, 1.0),
-    )
-    orig_backend = jax.default_backend
-    jax.default_backend = lambda: "tpu"
-    try:
-        fs_flow = df.Flow(chain2, data)
-        df.train(fs_flow, data, df.adam(1e-3), epochs=epochs,
-                 batchsize=64, mesh=mesh, key=jax.random.key(7),
-                 verbose=False)
-    finally:
-        jax.default_backend = orig_backend
-    assert fs_flow.trained_path == "fused-step-mesh", fs_flow.trained_path
-    fs_err = max(abs(a - b) for a, b in
-                 zip(flow.train_loss, fs_flow.train_loss))
-    assert fs_err < 1e-4, (flow.train_loss, fs_flow.train_loss)
-    del df_train
-
     with open(os.path.join(out_dir, f"result_{pid}.json"), "w") as f:
         json.dump(
             {
@@ -177,7 +149,6 @@ def main() -> None:
                 "ckpt_roundtrip_ok": True,
                 "stream_loss": stream_loss,
                 "scaling_train_sps": scaling_sps,
-                "fused_step_mesh_err": fs_err,
             },
             f,
         )

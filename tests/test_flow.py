@@ -278,10 +278,10 @@ def test_rqs_forward_fast_path_matches_forward(fixture_data):
 
 
 def test_chunked_sampling_fold_matches_straight():
-    """The row-chunked sampling fold (r5, the HBM-traffic fix for wide
-    configs — design.md §14e) must reproduce the straight fold exactly,
-    including a non-multiple-of-chunk remainder, and the threshold
-    routes only genuinely large folds."""
+    """The row-chunked sampling fold (the memory bound for very large
+    folds) must reproduce the straight fold exactly, including a
+    non-multiple-of-chunk remainder, and the threshold routes only folds
+    whose activations would pass the byte bound."""
     import jax.numpy as jnp
 
     from densityflows_tpu.models import flow as flow_mod
@@ -299,7 +299,7 @@ def test_chunked_sampling_fold_matches_straight():
     )
     fl = df.Flow(chain, data)
 
-    rows = 10_000  # not a multiple of the 4096-row chunk
+    rows = 10_000  # not a multiple of the chunk
     r = fl.base.sample(jax.random.key(7), (rows,))
     theta_n = fl.prepare_theta((0.5, 0.5), (rows,))
     straight = np.asarray(flow_mod._sample_program(
@@ -310,14 +310,15 @@ def test_chunked_sampling_fold_matches_straight():
     np.testing.assert_allclose(chunked, straight, atol=1e-6)
 
     # threshold: small folds stay on the straight program; only
-    # rows x width x 4B past the cache-resident regime chunk
+    # rows x width x 4B past the byte bound chunk
     assert not fl._chunk_fold(rows)
-    assert fl._chunk_fold(1 << 21)
+    assert not fl._chunk_fold(1 << 21)
+    assert fl._chunk_fold(1 << 26)
 
 
 def test_chunked_log_prob_matches_straight():
     """Row-chunked density evaluation == the straight program exactly
-    (same routing lever as the sampling fold, design.md §14e)."""
+    (same routing lever as the sampling fold)."""
     import jax.numpy as jnp
 
     from densityflows_tpu.models import flow as flow_mod
@@ -365,54 +366,16 @@ def test_sample_sweep_chunked_routing_equality():
     fl = df.Flow(chain, data)
     thetas = np.array([[0.2, 0.4], [0.8, 0.1]], np.float32)
 
-    out_plain = np.asarray(fl.sample_sweep(thetas, 4096,
+    per = flow_mod._FOLD_CHUNK
+    out_plain = np.asarray(fl.sample_sweep(thetas, per,
                                            key=jax.random.key(3)))
     # force the chunked route by dropping the byte threshold
     orig = flow_mod._FOLD_CHUNK_BYTES
     try:
         flow_mod._FOLD_CHUNK_BYTES = 0
-        assert fl._chunk_fold(2 * 4096)
-        out_chunk = np.asarray(fl.sample_sweep(thetas, 4096,
+        assert fl._chunk_fold(2 * per)
+        out_chunk = np.asarray(fl.sample_sweep(thetas, per,
                                                key=jax.random.key(3)))
     finally:
         flow_mod._FOLD_CHUNK_BYTES = orig
     np.testing.assert_allclose(out_chunk, out_plain, atol=1e-6)
-
-
-def test_fused_kernel_mode_lifecycle():
-    """flow.fused_kernel_mode starts None, records 'resident' /
-    'resident-chunked' after kernel runs, and is untouched by jnp
-    runs."""
-    import densityflows_tpu.models.fused_train as ft
-
-    rng = np.random.default_rng(2)
-    x = rng.normal(size=(120, 3)).astype(np.float32)
-    data = df.DataArrays.make(x, rng=0)
-
-    def build():
-        return df.Flow(df.flow_chain(
-            df.coupling_layer(data, [0, 1], key=jax.random.key(0),
-                              hidden_dim_s=8, hidden_dim_t=8),
-            df.normalization_layer(x, -1.0, 1.0),
-        ), data)
-
-    fl = build()
-    assert fl.fused_kernel_mode is None
-    df.train(fl, data, epochs=2, verbose=False, key=jax.random.key(1))
-    assert fl.fused_kernel_mode is None  # jnp path (CPU rig)
-
-    fl2 = build()
-    ft.train_fused(fl2, data, epochs=2, verbose=False,
-                   key=jax.random.key(1))
-    assert fl2.fused_kernel_mode == "resident"
-
-    nb = -(-len(data.partition.training) // 64)
-    orig = ft._HBM_SLAB_BUDGET
-    try:
-        ft._HBM_SLAB_BUDGET = 1 * nb * 64 * 3 * 4  # 1 epoch per chunk
-        fl3 = build()
-        ft.train_fused(fl3, data, epochs=3, verbose=False,
-                       key=jax.random.key(1))
-        assert fl3.fused_kernel_mode == "resident-chunked"
-    finally:
-        ft._HBM_SLAB_BUDGET = orig

@@ -140,8 +140,8 @@ def test_joint_fused_chain_matches_oracle(dirn):
     """The whole-chain kernel's ("coupling", "joint", …) op — shared
     stack + two folded heads — against the per-layer jnp fold
     (interpreter mode on CPU)."""
-    from densityflows_tpu.models import layers as L
-    from densityflows_tpu.models.fused_chain import maybe_apply_fused
+    from densityflows_tpu.models.fused_chain import (
+        apply_fused, chain_is_fusable)
 
     d, n = 6, 2
     ks = jax.random.split(jax.random.key(0), 3)
@@ -159,12 +159,8 @@ def test_joint_fused_chain_matches_oracle(dirn):
     )
     x = jax.random.normal(jax.random.key(5), (37, d)) * 0.5
     theta = jax.random.uniform(jax.random.key(6), (37, n))
-    L.set_fused_kernels(True)
-    try:
-        out = maybe_apply_fused(chain, x, theta, dirn, True)
-        assert out is not None, "joint chain should be fusable"
-    finally:
-        L.set_fused_kernels("auto")
+    assert chain_is_fusable(chain, d), "joint chain should be fusable"
+    out = apply_fused(chain, x, theta, dirn, True, interpret=True)
     ref = (chain.forward(x, theta) if dirn == "fwd"
            else chain.inverse(x, theta))
     np.testing.assert_allclose(np.asarray(out[0]), np.asarray(ref[0]),

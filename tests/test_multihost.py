@@ -1,10 +1,10 @@
 """Multi-host data parallelism, actually executed: 2 ``jax.distributed``
-processes (4 virtual CPU devices each) run the fused DP training program
+processes (4 virtual CPU devices each) run the DP training program
 over a shared 8-device mesh, with per-host batch assembly through
-``jax.make_array_from_process_local_data`` — the path a real multi-host
-TPU slice uses (SURVEY.md §2.2 DP disposition). The reference is
-single-process (src/DensityFlows.jl:29-35); this is the axis the TPU
-build must exceed it on.
+``jax.make_array_from_process_local_data`` — the path a real multi-node
+cluster uses (SURVEY.md §2.2 DP disposition). The reference is
+single-process (src/DensityFlows.jl:29-35); this is the axis this
+engine must exceed it on.
 
 Asserts:
 - both processes complete and agree on the loss histories exactly

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 via conftest) — the
-standard way to validate pjit/mesh code without TPU chips (SURVEY.md §4)."""
+standard way to validate pjit/mesh code without several accelerators (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp
@@ -231,7 +231,7 @@ def test_tp_training_matches_replicated(mesh2d):
 
 def test_128d_flow_dp_training(mesh):
     """BASELINE config 5 shape: 128-D flow, data-parallel batch over the
-    mesh, one fused step executes and the loss is finite."""
+    mesh, one jitted step executes and the loss is finite."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -269,7 +269,7 @@ def test_128d_flow_dp_training(mesh):
 
 
 def test_donated_buffers_are_consumed():
-    """Donation contract of the fused step: the donated model buffers are
+    """Donation contract of the jitted step: the donated model buffers are
     invalidated by the call (the aliasing hazard the reference handles by
     in-place convention, SURVEY.md §5 'race detection')."""
     import jax

@@ -163,96 +163,3 @@ def test_streaming_with_mesh_matches_unsharded():
     for a, b in zip(jax.tree_util.tree_leaves(f1.model),
                     jax.tree_util.tree_leaves(f2.model)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
-def test_fused_streaming_step_matches_jnp(monkeypatch):
-    """On a (faked) TPU backend the streaming trainer routes each batch
-    through the grads-only step kernel on folded params — histories,
-    params, and the returned opt_state must match the jnp step path
-    (same loader, same batches), and cross-path continuation works."""
-    import densityflows_tpu as df
-    from densityflows_tpu.data_stream import train_streaming
-
-    rng = np.random.default_rng(4)
-    x = rng.normal(size=(300, 4)).astype(np.float32)
-    th = rng.uniform(-1, 2, size=(300, 1)).astype(np.float32)
-    data = df.DataArrays.make(x, th, rng=0)
-
-    def build():
-        return df.Flow(df.flow_chain(
-            df.coupling_layer(data, [0, 1], key=jax.random.key(0),
-                              hidden_dim_s=8, hidden_dim_t=8),
-            df.coupling_layer(data, [2, 3], key=jax.random.key(1),
-                              joint_conditioner=True, hidden_dim_s=8,
-                              hidden_dim_t=8),
-            df.normalization_layer(x, -1.0, 1.0),
-        ), data)
-
-    kw = dict(epochs=3, batchsize=32, seed=7, verbose=False,
-              valid_data=(x[:60], th[:60]))
-    f_j = build()
-    os_j = train_streaming(f_j, x, th, df.adam(2e-3), **kw)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    f_s = build()
-    os_s = train_streaming(f_s, x, th, df.adam(2e-3), **kw)
-    assert f_s.trained_path == "fused-step"
-    np.testing.assert_allclose(f_j.train_loss, f_s.train_loss, atol=1e-4)
-    np.testing.assert_allclose(f_j.valid_loss, f_s.valid_loss, atol=1e-4)
-    assert int(os_j[0].count) == int(os_s[0].count)
-    for a, b in zip(jax.tree_util.tree_leaves(f_j.model),
-                    jax.tree_util.tree_leaves(f_s.model)):
-        if a.size:
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=1e-4)
-
-    # continuation with a jnp-produced opt_state folds in exactly
-    train_streaming(f_s, x, th, df.adam(2e-3), opt_state=os_j,
-                    epochs=2, batchsize=32, seed=9, verbose=False)
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    train_streaming(f_j, x, th, df.adam(2e-3), opt_state=os_s,
-                    epochs=2, batchsize=32, seed=9, verbose=False)
-    np.testing.assert_allclose(f_j.train_loss, f_s.train_loss, atol=1e-4)
-
-
-def test_fused_streaming_step_mesh(monkeypatch):
-    """Streaming + mesh + fused step: the shard_map DP step kernel
-    (train.make_fused_step_fn) must reproduce the GSPMD jnp streaming
-    path batch-for-batch on the 8-device CPU mesh."""
-    import densityflows_tpu as df
-    from densityflows_tpu.data_stream import train_streaming
-    from densityflows_tpu.parallel.mesh import make_mesh
-
-    rng = np.random.default_rng(8)
-    x = rng.normal(size=(320, 4)).astype(np.float32)
-    th = rng.uniform(-1, 2, size=(320, 1)).astype(np.float32)
-    data = df.DataArrays.make(x, th, rng=0)
-    mesh = make_mesh()
-
-    def build():
-        return df.Flow(df.flow_chain(
-            df.coupling_layer(data, [0, 1], key=jax.random.key(0),
-                              hidden_dim_s=8, hidden_dim_t=8),
-            df.coupling_layer(data, [2, 3], key=jax.random.key(1),
-                              hidden_dim_s=8, hidden_dim_t=8),
-            df.normalization_layer(x, -1.0, 1.0),
-        ), data)
-
-    kw = dict(epochs=3, batchsize=32, seed=7, verbose=False, mesh=mesh,
-              valid_data=(x[:64], th[:64]))
-    f_j = build()
-    os_j = train_streaming(f_j, x, th, df.adam(2e-3), **kw)
-    assert f_j.trained_path != "fused-step-mesh"  # CPU backend: jnp
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    f_s = build()
-    os_s = train_streaming(f_s, x, th, df.adam(2e-3), **kw)
-    assert f_s.trained_path == "fused-step-mesh"
-    np.testing.assert_allclose(f_j.train_loss, f_s.train_loss, atol=1e-4)
-    np.testing.assert_allclose(f_j.valid_loss, f_s.valid_loss, atol=1e-4)
-    assert int(os_j[0].count) == int(os_s[0].count)
-    for a, b in zip(jax.tree_util.tree_leaves(f_j.model),
-                    jax.tree_util.tree_leaves(f_s.model)):
-        if a.size:
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=1e-4)

@@ -149,8 +149,7 @@ def test_early_stopping_restores_exact_best_epoch():
 def test_tagged_adam_through_chunked_drivers(tmp_path):
     """df.adam(...) flows through the early-stopping and
     checkpoint-restart chunk drivers (each chunk is a plain-surface
-    train() call that may auto-route through the fused kernel on TPU;
-    on the CPU rig they run the jnp program with the cached-by-
+    train() call running the jnp program with the cached-by-
     hyperparameters Adam)."""
     flow, data = _setup(7)
     df.train(flow, data, df.adam(2e-3), epochs=12, batchsize=32,
